@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one GPU and hold its kernels against their plain versions.
+
+Run from the repository root, on a machine with one CUDA card and ``nvcc``:
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (nothing is caught and skipped):
+
+1. print the card's name, the device count and ``nvidia-smi``'s name and
+   power limit;
+2. build both kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
+   (one ``nvcc`` per source, started together) and print ptxas's
+   registers / shared memory / spills;
+3. generate the corpus: 65,533 seeded 24-clue 9x9 boards carved with
+   ``make_puzzle(unique=False)`` plus ``HARD_9`` (every carved board keeps
+   its parent solution, so no board may come back unsat);
+4. K1 (fixpoint) against its plain version: 32,768 boards on every rule
+   tier, plus 16x16 and 25x25 batches; masks and sweep counts bit-equal;
+5. K2 (fused rounds) against its plain version: one dispatch of a
+   32,768-lane frontier seeded from the corpus (S=12, k_steps=8, extended
+   rules) for every legacy branch rule, count_mode off and on; all 13
+   outputs bit-equal (``sweeps_total`` under the port's per-lane sum);
+6. the main path, ``solve_bulk(corpus, SUDOKU_9, BulkConfig())`` twice:
+   every solution valid and agreeing with its givens, no board unsat, K2's
+   launch count above zero; boards/s of the second pass and its trace;
+   then a third pass under torch.profiler for device time by kernel;
+7. the composite path, ``solve_batch`` on 4,096 corpus boards with
+   ``SolverConfig(propagator="pallas")``: verdicts checked, K1's launch
+   count above zero;
+8. one JSON line ``{"kernels": [...]}`` (launches on the paths, CUDA-event
+   times at the path's shape, the plain version's time, the bound);
+9. the last line, ``{"ok": true, "device": {...}}``.
+
+Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
+integer bit algebra.  Exits nonzero without a result where CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, and the
+# 32-bit rate outside the tensor cores, used for the kernels' integer ops.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, composite=4096,
+             n16=2048, n25=512, reps=5)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sweep_ops(geom, rules: str) -> int:
+    """Integer operations of one sweep of one board, counted on the plain
+    algorithm: unit reductions at 1 op (OR) or 3 ops (once/twice) per cell
+    per unit type, plus the per-cell combines of each stage."""
+    n2 = geom.n * geom.n
+    ops = (1 + 3 + 5) * n2 + (9 + 4) * n2  # elimination, hidden singles
+    if rules in ("extended", "subsets"):
+        ops += 2 * n2 * (3 + 2 * (geom.n_hboxes + geom.box_h)) + 2 * n2
+    if rules == "subsets":
+        ops += 21 * geom.n ** 3
+    return ops
+
+
+def round_ops(geom) -> int:
+    """Integer operations of one round outside the fixpoint: status
+    (3 unit types, 4 ops per cell each, + 2 per cell), branch key and
+    argmin (3 per cell), row copy for the push or pop (1 per cell)."""
+    return (12 + 2 + 3 + 1) * geom.n * geom.n
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_ops / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def event_ms(fn, reps: int, setup=None) -> float:
+    """Mean CUDA-event time of ``fn(setup())`` over ``reps`` runs after one
+    warm-up; ``setup`` runs outside the timed region."""
+    import torch
+
+    fn(setup() if setup else None)
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        arg = setup() if setup else None
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def max_abs_err(a, b) -> int:
+    """Largest absolute difference of two tensors' values (uint32 patterns
+    compared as unsigned); raises on a shape or dtype mismatch."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"shape/dtype mismatch: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    if a.dtype == torch.bool:
+        return int((a != b).sum().item() > 0)
+    x = a.to(torch.int64)
+    y = b.to(torch.int64)
+    if a.dtype == torch.int32 and a.ndim >= 2:
+        x, y = x & 0xFFFFFFFF, y & 0xFFFFFFFF
+    return int((x - y).abs().max().item()) if x.numel() else 0
+
+
+# -- phases ---------------------------------------------------------------------
+
+
+def phase_device() -> dict:
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    log(f"[1] device: {name} x{count}")
+    log(smi[0])
+    return {"kind": name, "count": count, "smi": smi[0]}
+
+
+def phase_build() -> None:
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    seconds = cuda_build.build()
+    log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+        f"total {time.perf_counter() - t0:.2f} s")
+    for name in cuda_build.SOURCES:
+        for line in cuda_build.ptxas_report(name).splitlines():
+            if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+                log(f"    {name}: {line.strip()}")
+
+
+def make_corpus(geom, count: int, seed: int, n_clues=None, hard=()):
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import make_puzzle
+
+    boards = [np.asarray(h) for h in hard]
+    boards += [make_puzzle(geom, seed + i, n_clues=n_clues, unique=False)
+               for i in range(count - len(boards))]
+    return np.stack(boards).astype(np.int32)
+
+
+def phase_corpus(sizes):
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(SUDOKU_9, sizes["corpus"], seed=7, n_clues=24, hard=HARD_9)
+    log(f"[3] corpus: {corpus.shape[0]} boards (HARD_9 + 24-clue carved, seed 7) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return corpus
+
+
+def phase_k1(corpus, sizes, dev):
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_16, SUDOKU_25, SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate as k1
+    from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
+    from distributed_sudoku_solver_tpu_torch.ops.propagate import RULE_TIERS, propagate_per_board
+
+    batches = [
+        (SUDOKU_9, torch.from_numpy(corpus[: sizes["k1_boards"]])),
+        (SUDOKU_16, torch.from_numpy(make_corpus(SUDOKU_16, sizes["n16"], seed=11))),
+        (SUDOKU_25, torch.from_numpy(make_corpus(SUDOKU_25, sizes["n25"], seed=13))),
+    ]
+    err = 0
+    for geom, grids in batches:
+        cand = encode_grid(grids.to(dev), geom).contiguous()
+        for rules in RULE_TIERS:
+            got, sw = k1.propagate_fixpoint_cuda(cand, geom, 64, rules)
+            want, sw_plain = k1.propagate_fixpoint_plain(cand, geom, 64, rules)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want) + abs(int(sw) - int(sw_plain))
+            log(f"[4] K1 {geom.n}x{geom.n} B={cand.shape[0]} {rules}: sweeps {int(sw)} "
+                f"(plain {int(sw_plain)}) max_abs_err {e}")
+            if e:
+                raise AssertionError(f"K1 disagrees with its plain version: {geom} {rules}")
+            err = max(err, e)
+
+    # Timing at the composite path's shape: its first round propagates the
+    # encoded corpus boards, basic rules (phase 7's SolverConfig).
+    geom = SUDOKU_9
+    cand = encode_grid(torch.from_numpy(corpus[: sizes["composite"]]).to(dev), geom).contiguous()
+    ms = event_ms(lambda _: k1.propagate_fixpoint_cuda(cand, geom, 64, "basic"), sizes["reps"])
+    plain_ms = event_ms(lambda _: k1.propagate_fixpoint_plain(cand, geom, 64, "basic"),
+                        sizes["reps"])
+    _, per_board = propagate_per_board(cand, geom, 64, "basic")
+    n_bytes = 2 * cand.numel() * 4 + cand.shape[0] * 4
+    n_ops = int(per_board.sum()) * sweep_ops(geom, "basic")
+    bms, by = bound_ms(n_bytes, n_ops)
+    wide = encode_grid(torch.from_numpy(corpus[: sizes["k1_boards"]]).to(dev), geom).contiguous()
+    wide_ms = event_ms(lambda _: k1.propagate_fixpoint_cuda(wide, geom, 64, "extended"),
+                       sizes["reps"])
+    log(f"[4] K1 timing B={cand.shape[0]} basic: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bms:.6f} ms ({by}); B={wide.shape[0]} extended: {wide_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def _seeded_frontier(corpus, lanes: int, slots: int, dev):
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
+
+    top = encode_grid(torch.from_numpy(corpus[:lanes]).to(dev), SUDOKU_9).contiguous()
+    stack = torch.zeros((lanes, slots, 9, 9), dtype=torch.int32, device=dev)
+    has = torch.ones(lanes, dtype=torch.bool, device=dev)
+    zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    return top, stack, has, zeros, zeros.clone()
+
+
+def phase_k2(corpus, sizes, dev):
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step as k2
+    from distributed_sudoku_solver_tpu_torch.ops.ordering import LEGACY_RULES
+
+    geom = SUDOKU_9
+    lanes, slots, k = sizes["k2_lanes"], 12, 8
+    top, stack, has, base, count = _seeded_frontier(corpus, lanes, slots, dev)
+    err = 0
+    for rule in LEGACY_RULES:
+        for count_mode in (False, True):
+            kw = dict(rules="extended", branch_rule=rule, max_sweeps=64, k_steps=k,
+                      tile=128, count_mode=count_mode, sweep_unroll=2)
+            got = k2.fused_rounds_cuda(top, stack.clone(), has, base, count, geom, **kw)
+            want = k2.fused_rounds_plain(top, stack.clone(), has, base, count, geom, **kw)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(a, b) for a, b in zip(got, want))
+            log(f"[5] K2 L={lanes} S={slots} k={k} {rule} count_mode={count_mode}: "
+                f"steps_max {int(got[12])} sweeps_total {int(got[11])} "
+                f"nodes {int(got[8].sum())} max_abs_err {e}")
+            if e:
+                raise AssertionError(f"K2 disagrees with its plain version: {rule} {count_mode}")
+            err = max(err, e)
+
+    # Timing at the bulk first pass's shape (BulkConfig(): S=12, 8 rounds per
+    # dispatch, extended rules, minrem): the first dispatch of the chunk.
+    kw = dict(rules="extended", branch_rule="minrem", max_sweeps=64, k_steps=k, tile=128,
+              count_mode=False, sweep_unroll=2)
+    ms = event_ms(lambda s: k2.fused_rounds_cuda(top, s, has, base, count, geom, **kw),
+                  sizes["reps"], setup=stack.clone)
+    plain_ms = event_ms(lambda s: k2.fused_rounds_plain(top, s, has, base, count, geom, **kw),
+                        2, setup=stack.clone)
+    out = k2.fused_rounds_cuda(top, stack.clone(), has, base, count, geom, **kw)
+    nodes, live, sweeps_total = out[8], out[10], int(out[11])
+    if bool(out[7].any()):
+        raise AssertionError("the timed dispatch overflowed; the byte count assumes it does not")
+    pushes = int(nodes.sum())
+    pops = int((count + nodes - out[4]).sum())
+    n2 = geom.n * geom.n
+    n_bytes = (3 * lanes * n2 + (pushes + pops) * n2) * 4 + 11 * lanes * 4
+    n_ops = sweeps_total * sweep_ops(geom, "extended") + int(live.sum()) * round_ops(geom)
+    bms, by = bound_ms(n_bytes, n_ops)
+    log(f"[5] K2 timing L={lanes}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+        f"({by}); pushes {pushes} pops {pops} sweeps {sweeps_total}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def check_solutions(grids, solution, solved, unsat, what: str) -> None:
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import is_valid_solution
+
+    if int(unsat.sum()):
+        raise AssertionError(f"{what}: {int(unsat.sum())} boards came back unsat")
+    if not bool(solved.all()):
+        raise AssertionError(f"{what}: {int((~solved).sum())} boards unresolved")
+    givens = grids > 0
+    if not np.array_equal(solution[givens], grids[givens]):
+        raise AssertionError(f"{what}: a solution disagrees with its givens")
+    bad = [i for i in range(len(grids)) if not is_valid_solution(solution[i])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} invalid solutions, first {bad[0]}")
+
+
+def phase_main(corpus, dev):
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.bulk import BulkConfig, solve_bulk
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    cfg = BulkConfig()
+    t0 = time.perf_counter()
+    solve_bulk(corpus, SUDOKU_9, cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"[6] bulk pass 1: {time.perf_counter() - t0:.3f} s")
+
+    cuda_step.fused_rounds_cuda.launches = 0
+    cuda_propagate.propagate_fixpoint_cuda.launches = 0
+    trace: dict = {}
+    t0 = time.perf_counter()
+    res = solve_bulk(corpus, SUDOKU_9, cfg, trace=trace, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K2": cuda_step.fused_rounds_cuda.launches,
+                "K1": cuda_propagate.propagate_fixpoint_cuda.launches}
+    check_solutions(corpus, res.solution, res.solved, res.unsat, "bulk")
+    for i, h in enumerate(HARD_9):
+        if not np.array_equal(res.solution[i], solve_oracle(h)):
+            raise AssertionError(f"bulk: HARD_9[{i}] differs from the oracle's solution")
+    if launches["K2"] <= 0:
+        raise AssertionError("bulk main path launched K2 no time")
+    log(f"[6] bulk pass 2: {len(corpus)} boards in {wall:.3f} s = "
+        f"{len(corpus) / wall:.1f} boards/s; searched {res.searched}, by propagation "
+        f"{int(res.by_propagation.sum())}; launches {launches}")
+    log(f"[6] trace {json.dumps(trace, default=str)}")
+    return launches
+
+
+def phase_profile(corpus, dev) -> None:
+    """A third bulk pass under torch.profiler: device time by kernel and
+    the device's busy share of the pass's host wall clock (the profiler's
+    own overhead lengthens that wall, so the share is a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops.bulk import BulkConfig, solve_bulk
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_bulk(corpus, SUDOKU_9, BulkConfig(), device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    log(f"[6] profile: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * busy_us / wall_us:.1f}% of wall)")
+    for key, us, count in rows[:8]:
+        log(f"    {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def phase_composite(corpus, sizes, dev):
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch
+
+    grids = corpus[: sizes["composite"]]
+    cfg = SolverConfig(propagator="pallas")
+    cuda_step.fused_rounds_cuda.launches = 0
+    cuda_propagate.propagate_fixpoint_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = solve_batch(grids, SUDOKU_9, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": cuda_propagate.propagate_fixpoint_cuda.launches,
+                "K2": cuda_step.fused_rounds_cuda.launches}
+    check_solutions(grids, res.solution.cpu().numpy(), res.solved.cpu().numpy(),
+                    res.unsat.cpu().numpy(), "composite")
+    if launches["K1"] <= 0:
+        raise AssertionError("composite path launched K1 no time")
+    log(f"[7] composite solve_batch: {len(grids)} boards in {wall:.3f} s, steps "
+        f"{int(res.steps)}, sweeps {int(res.sweeps)}, steals {int(res.steals)}; "
+        f"launches {launches}")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step  # noqa: F401
+
+    dev = torch.device("cuda")
+    device = phase_device()
+    phase_build()
+    corpus = phase_corpus(SIZES)
+    k1 = phase_k1(corpus, SIZES, dev)
+    k2 = phase_k2(corpus, SIZES, dev)
+    main_launches = phase_main(corpus, dev)
+    phase_profile(corpus, dev)
+    comp_launches = phase_composite(corpus, SIZES, dev)
+    pkg = "distributed_sudoku_solver_tpu_torch/csrc"
+    kernels = [
+        dict(name="K1 propagate_fixpoint", route="cuda", source=f"{pkg}/propagate.cu",
+             replaces="distributed_sudoku_solver_tpu/ops/pallas_propagate.py:441",
+             launches=comp_launches["K1"], library_ms=None, **k1),
+        dict(name="K2 fused_rounds", route="cuda", source=f"{pkg}/fused_step.cu",
+             replaces="distributed_sudoku_solver_tpu/ops/pallas_step.py:510",
+             launches=main_launches["K2"], library_ms=None, **k2),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                             "count": device["count"]}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

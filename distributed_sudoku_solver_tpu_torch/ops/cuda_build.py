@@ -1,0 +1,112 @@
+"""Build and load the package's CUDA kernels (nvcc -> .so -> ctypes).
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface, for ``sm_90a`` (Hopper).  The build runs at first use,
+into ``_build/`` beside this package (git ignores it), under a name keyed
+by a hash of the sources and flags, so an edited source never loads a stale
+library.  :func:`build` starts one ``nvcc`` per source, all at once, and
+keeps ptxas's register / shared-memory / spill report beside each library.
+Nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("propagate", "fused_step")
+HEADERS = ("fixpoint.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler, from PATH or the toolkit's default prefix."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels of "
+        "distributed_sudoku_solver_tpu_torch cannot be built"
+    )
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (f"{name}.cu", *HEADERS):
+        h.update(f.encode())
+        h.update((CSRC_DIR / f).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's per-kernel resource lines from the build of ``name``."""
+    log = lib_path(name).with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
+
+
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, all nvcc
+    processes started together; returns seconds per library built."""
+    todo = [n for n in names if not lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        tmp = lib_path(name).with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    seconds: dict[str, float] = {}
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
+            continue
+        lib_path(name).with_suffix(".ptxas.txt").write_text(out)
+        os.replace(tmp, lib_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launch function."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

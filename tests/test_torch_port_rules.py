@@ -1,0 +1,165 @@
+"""Rules of the PyTorch/CUDA port, and its card-only kernel tests.
+
+* The port imports neither JAX nor the JAX package (checked in a fresh
+  subprocess, since this test process has JAX loaded, and by an AST scan).
+* Entry points default to CUDA and raise where it is absent, unless the
+  caller asks for the CPU; kernel wrappers never fall back to the plain
+  version for a tensor that is not on the CPU.
+* Tests marked ``cuda`` hold each kernel against its plain version on a
+  card; a fixture decides whether a card exists and skips otherwise.
+  Tolerance: exact equality.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_4, SUDOKU_9, SUDOKU_16
+from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
+from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
+from distributed_sudoku_solver_tpu_torch.ops.bulk import solve_bulk
+from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch, solve_one
+from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, make_puzzle
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "distributed_sudoku_solver_tpu_torch"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _modules():
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'distributed_sudoku_solver_tpu'\n"
+        "       or m.startswith('distributed_sudoku_solver_tpu.')]\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "BAD []" in out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_file_imports_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "distributed_sudoku_solver_tpu"), (path, name)
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grids = np.stack([HARD_9[0]]).astype(np.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve_batch(grids, SUDOKU_9)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve_one(HARD_9[0], SUDOKU_9)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        solve_bulk(grids, SUDOKU_9)
+    res = solve_batch(grids, SUDOKU_9, SolverConfig(min_lanes=4), device="cpu")
+    assert bool(res.solved[0])
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    meta = torch.empty((2, 9, 9), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_propagate.propagate_fixpoint_pallas(meta, SUDOKU_9)
+    stack = torch.empty((2, 3, 9, 9), dtype=torch.int32, device="meta")
+    lane = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_step.fused_rounds(meta, stack, lane.bool(), lane, lane, SUDOKU_9)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+# -- card-only: each kernel against its plain version ---------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _corpus(geom, count, seed):
+    return np.stack([make_puzzle(geom, seed + i, unique=False) for i in range(count)]).astype(
+        np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rules", ["basic", "extended", "subsets"])
+@pytest.mark.parametrize("geom", [SUDOKU_4, SUDOKU_9, SUDOKU_16], ids=str)
+def test_k1_kernel_matches_plain(cuda_device, geom, rules):
+    cand = encode_grid(torch.from_numpy(_corpus(geom, 300, 1)).to(cuda_device), geom).contiguous()
+    before = cuda_propagate.propagate_fixpoint_cuda.launches
+    got, sweeps = cuda_propagate.propagate_fixpoint_pallas(cand, geom, rules=rules)
+    want, want_sweeps = cuda_propagate.propagate_fixpoint_plain(cand, geom, rules=rules)
+    assert cuda_propagate.propagate_fixpoint_cuda.launches == before + 1
+    assert torch.equal(got, want) and int(sweeps) == int(want_sweeps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count_mode", [False, True])
+@pytest.mark.parametrize("branch", ["minrem", "first", "mixed", "minrem-desc"])
+def test_k2_kernel_matches_plain(cuda_device, branch, count_mode):
+    geom = SUDOKU_9
+    lanes, slots = 384, 5
+    top = encode_grid(torch.from_numpy(_corpus(geom, lanes, 2)).to(cuda_device), geom)
+    stack = encode_grid(
+        torch.from_numpy(_corpus(geom, lanes * slots, 9)).to(cuda_device), geom
+    ).reshape(lanes, slots, 9, 9).contiguous()
+    gen = np.random.default_rng(3)
+    has = torch.from_numpy(gen.random(lanes) < 0.8).to(cuda_device)
+    base = torch.from_numpy(gen.integers(0, slots, lanes).astype(np.int32)).to(cuda_device)
+    count = torch.from_numpy(gen.integers(0, slots + 1, lanes).astype(np.int32)).to(cuda_device)
+    kw = dict(rules="extended", branch_rule=branch, k_steps=6, count_mode=count_mode)
+    got = cuda_step.fused_rounds(top, stack.clone(), has, base, count, geom, **kw)
+    want = cuda_step.fused_rounds_plain(top, stack.clone(), has, base, count, geom, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_fused_solve_on_card_matches_cpu(cuda_device):
+    grids = _corpus(SUDOKU_9, 200, 5)
+    cfg = SolverConfig(step_impl="fused", rules="extended", stack_slots=12)
+    got = solve_batch(grids, SUDOKU_9, cfg, device=cuda_device)
+    want = solve_batch(grids, SUDOKU_9, cfg, device="cpu")
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
