@@ -28,9 +28,23 @@ Phases, each of which must pass (nothing is caught and skipped):
 7. the composite path, ``solve_batch`` on 4,096 corpus boards with
    ``SolverConfig(propagator="pallas")``: verdicts checked, K1's launch
    count above zero;
-8. one JSON line ``{"kernels": [...]}`` (launches on the paths, CUDA-event
-   times at the path's shape, the plain version's time, the bound);
-9. the last line, ``{"ok": true, "device": {...}}``.
+8. K3 (cover rounds) against its plain version: a 4,096-lane, S=128
+   frontier of ``nqueens_cover(14)``, ``pentomino_cover(6, 10)`` and
+   ``sudoku_cover(SUDOKU_9)`` (HARD_9 clue roots), fanned out by driver
+   rounds; one dispatch (k_steps=8) with count_mode off and on, all 13
+   outputs bit-equal; the kernel's device time (torch.profiler), the
+   wrapper's CUDA-event time, plain time and bound of each;
+9. the cover path at full width, ``solve_csp`` with ``step_impl="fused"``,
+   4,096 lanes, S=128, ``count_all``, ``steal_rounds=4``: n-queens 14 must
+   count 365,596 and pentomino 6x10 9,356, exhausted, no overflow, K3's
+   launch count above zero; wall, solutions/s and dispatches of the second
+   run of each; then n-queens 14 once more under torch.profiler;
+10. the composite cover path (``step_impl="xla"``): n-queens 12 must count
+   14,200, and each HARD_9 board solved through ``sudoku_cover`` must
+   decode to the copied oracle's solution;
+11. one JSON line ``{"kernels": [...]}`` (launches on the paths, times at
+   the path's shape, the plain version's time, the bound);
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -46,13 +60,22 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, and the
-# 32-bit rate outside the tensor cores, used for the kernels' integer ops.
+# Peaks of one H100 SXM at 700 W.  HBM bandwidth, from NVIDIA's data sheet.
+# The kernels do 32-bit integer work, which the data sheet does not rate: its
+# 67 TFLOP/s float32 rate outside the tensor cores counts an FMA as two ops
+# on 128 FP32 lanes per SM; compute capability 9.0 issues 64 32-bit integer
+# ops (add, logic, shift, compare, min) per SM per clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput), so 67e12 / 2 / 2 int32 ops/s.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_INT32_OPS_PER_S = 67e12 / 4
 
 SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, composite=4096,
-             n16=2048, n25=512, reps=5)
+             n16=2048, n25=512, reps=5, cover_lanes=4096, cover_slots=128,
+             cover_fanout_steps=160, cover_composite_lanes=1024)
+
+# Enumeration counts the cover phases must reproduce exactly (OEIS A000170
+# for n-queens 14; 2,339 tilings x 4 symmetries for pentomino 6x10).
+COVER_COUNTS = {"nqueens14": 365_596, "pentomino6x10": 9_356, "nqueens12": 14_200}
 
 
 def log(msg: str) -> None:
@@ -79,9 +102,63 @@ def round_ops(geom) -> int:
     return (12 + 2 + 3 + 1) * geom.n * geom.n
 
 
+def _cols_per_row(problem) -> float:
+    """Mean number of full columns (primary and secondary) of a row."""
+    from distributed_sudoku_solver_tpu_torch.models.cover import _unpack_bits
+
+    return float(_unpack_bits(problem.incidence, problem.n_cols_full).sum(1).mean())
+
+
+def cover_dispatch_work(problem, top, stack, has_top, base, count, **kw) -> dict:
+    """What one cover dispatch's data needs, from a plain run of it: every
+    count pass of every live lane (each sweep, and the re-scan after a chain
+    that the cap cut) with the uncovered primary columns it must count, and
+    the rows the sweeps took.  Covered columns need no count and are not
+    charged."""
+    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import _plain_rounds
+
+    max_sweeps = kw.pop("max_sweeps")
+    work = {"sweeps": 0, "columns": 0, "takes": 0}
+
+    def propagate(states):
+        # Dead lanes enter as zeros; a live state never is (it has rows
+        # available or columns covered), and the sweep check below holds it.
+        active = (states != 0).flatten(1).any(1)
+        avail, covered = problem._split(states)
+        for _ in range(max_sweeps):
+            work["sweeps"] += int(active.sum())
+            work["columns"] += int((problem._counts(avail, covered)[1] & active[:, None]).sum())
+            avail, covered, took = problem._forced_take(avail, covered)
+            active = active & took
+            work["takes"] += int(active.sum())
+            if not bool(active.any()):
+                break
+        work["columns"] += int((problem._counts(avail, covered)[1] & active[:, None]).sum())
+        return problem.propagate_per_lane(states, max_sweeps)
+
+    out = _plain_rounds(top, stack, has_top, base, count, propagate, problem.status,
+                        problem.branch, words=problem.w_rows, **kw)
+    if work["sweeps"] != int(out[11]):
+        raise AssertionError(f"the work count saw {work['sweeps']} sweeps, the round {int(out[11])}")
+    return work
+
+
+def cover_dispatch_ops(problem, work: dict, nodes: int, copies: int) -> float:
+    """Integer operations of one cover dispatch on its data: per uncovered
+    column of a count pass, AND, popcount and add per row word and 4 for the
+    keys; per row taken (forced, or a branch's guess), the lowest row (2 per
+    row word), the take (one OR per row word per column of the row, 2 per
+    row word to clear and keep, 1 per covered word); 1 per word of each
+    state the stack pushes or pops."""
+    wr, wc = problem.w_rows, problem.w_cols
+    take = 2 * wr + (_cols_per_row(problem) + 2) * wr + wc
+    return (work["columns"] * (3 * wr + 4) + (work["takes"] + nodes) * take
+            + copies * (wr + wc))
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S
+    t_ops = n_ops / PEAK_INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -104,6 +181,28 @@ def event_ms(fn, reps: int, setup=None) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(fn, reps: int, setup, match: str) -> float:
+    """Mean device time per call of the kernels whose name contains
+    ``match``, over ``reps`` calls of ``fn(setup())`` under torch.profiler
+    after one warm-up; ``setup`` runs before the profiled region.  For a
+    kernel shorter than its wrapper's host work, where CUDA events around
+    the wrapper would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(setup())
+    args = [setup() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args:
+            fn(a)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time of {match!r}")
+    return us / reps / 1e3
 
 
 def max_abs_err(a, b) -> int:
@@ -390,6 +489,239 @@ def phase_composite(corpus, sizes, dev):
     return launches
 
 
+def cover_instances(full: bool = True):
+    """(name, problem, root states) of the cover phases: n-queens 14 and
+    pentomino 6x10 from their single root, sudoku-cover 9x9 from the HARD_9
+    clue roots (``full=False`` leaves the sudoku instance out)."""
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.models.cover import sudoku_clue_rows, sudoku_cover
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
+    from distributed_sudoku_solver_tpu_torch.models.pentomino import pentomino_cover
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    out = []
+    for name, problem in (("nqueens14", nqueens_cover(14)),
+                          ("pentomino6x10", pentomino_cover(6, 10))):
+        out.append((name, problem, problem.initial_state()[None]))
+    if full:
+        p = sudoku_cover(SUDOKU_9)
+        roots = np.stack([p.state_with_rows_taken(sudoku_clue_rows(h)) for h in HARD_9])
+        out.append(("sudoku-cover9x9", p, roots))
+    return out
+
+
+def cover_config(**kw):
+    """The cover path's configuration (``benchmarks/bench_cover.py``'s width)."""
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+
+    base = dict(lanes=SIZES["cover_lanes"], stack_slots=SIZES["cover_slots"],
+                max_steps=1_000_000, count_all=True, steal_rounds=4, step_impl="fused")
+    return SolverConfig(**{**base, **kw})
+
+
+def phase_k3(sizes, dev):
+    """K3 against its plain version on fanned-out 4,096-lane frontiers.
+
+    n-queens and pentomino grow from their one root through fused driver
+    rounds (steals double the live lanes each dispatch); sudoku-cover seeds
+    every lane with a HARD_9 clue root (cycled, one job each) and runs two
+    dispatches so that stacks fill.  Timing is at the enumeration path's
+    mode (count_mode on)."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover as k3
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import init_frontier
+
+    lanes, k = sizes["cover_lanes"], 8
+    err, rows = 0, {}
+    for name, problem, roots in cover_instances():
+        cfg = cover_config()
+        steps = sizes["cover_fanout_steps"]
+        if roots.shape[0] > 1:
+            roots = np.resize(roots, (lanes, *roots.shape[1:]))
+            steps = 2 * k
+        state = init_frontier(torch.from_numpy(roots).to(dev), cfg)
+        state = k3.advance_cover_fused(state, steps, problem, cfg)
+        top, stack, has, base, count = (state.top, state.stack, state.has_top, state.base,
+                                        state.count)
+        log(f"[8] K3 {name} L={lanes} S={stack.shape[1]} D={top.shape[-1]}: after "
+            f"{int(state.steps)} steps {int(has.sum())} lanes live, mean stack "
+            f"{float(count.float().mean()):.1f}")
+        for count_mode in (False, True):
+            kw = dict(max_sweeps=problem.max_sweeps, k_steps=k, tile=128,
+                      count_mode=count_mode)
+            got = k3.cover_fused_rounds_cuda(top, stack.clone(), has, base, count, problem, **kw)
+            want = k3.cover_fused_rounds_plain(top, stack.clone(), has, base, count, problem,
+                                               **kw)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(a, b) for a, b in zip(got, want))
+            log(f"[8] K3 {name} count_mode={count_mode}: steps_max {int(got[12])} "
+                f"sweeps_total {int(got[11])} nodes {int(got[8].sum())} sols "
+                f"{int(got[9].sum())} max_abs_err {e}")
+            if e:
+                raise AssertionError(f"K3 disagrees with its plain version: {name} {count_mode}")
+            err = max(err, e)
+
+        kw = dict(max_sweeps=problem.max_sweeps, k_steps=k, tile=128, count_mode=True)
+
+        def run(st):
+            return k3.cover_fused_rounds_cuda(top, st, has, base, count, problem, **kw)
+
+        ms = device_ms(run, sizes["reps"], stack.clone, "cover_kernel")
+        wrapper_ms = event_ms(run, sizes["reps"], setup=stack.clone)
+        plain_ms = event_ms(lambda st: k3.cover_fused_rounds_plain(top, st, has, base, count,
+                                                                  problem, **kw),
+                            1, setup=stack.clone)
+        out = k3.cover_fused_rounds_cuda(top, stack.clone(), has, base, count, problem, **kw)
+        nodes, live, sweeps_total = out[8], out[10], int(out[11])
+        if bool(out[7].any()):
+            raise AssertionError("the timed dispatch overflowed; the byte count assumes it does not")
+        pushes = int(nodes.sum())
+        pops = int((count + nodes - out[4]).sum())
+        d = top.shape[-1]
+        consts = problem.n_cols_full * problem.w_rows + problem.n_rows * (
+            problem.incidence.shape[1] + problem.w_cols)
+        n_bytes = (3 * lanes * d + (pushes + pops) * d + consts) * 4 + 11 * lanes * 4
+        work = cover_dispatch_work(problem, top, stack.clone(), has, base, count, **kw)
+        n_ops = cover_dispatch_ops(problem, work, pushes, pushes + pops)
+        bms, by = bound_ms(n_bytes, n_ops)
+        log(f"[8] K3 timing {name} L={lanes} count_mode: {ms:.4f} ms (kernel, profiler; "
+            f"wrapper {wrapper_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.6f} ms ({by}); pushes {pushes} pops {pops} sweeps {sweeps_total} "
+            f"(forced takes {work['takes']}, uncovered columns counted {work['columns']} of "
+            f"{sweeps_total * problem.n_primary}) live rounds {int(live.sum())}")
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    return err, rows
+
+
+def _check_cover_solution(name, problem, solution) -> None:
+    from distributed_sudoku_solver_tpu_torch.models.nqueens import decode_queens, is_valid_queens
+    from distributed_sudoku_solver_tpu_torch.models.pentomino import decode_tiling, is_valid_tiling
+
+    if name.startswith("nqueens"):
+        n = int(name[len("nqueens"):])
+        ok = is_valid_queens(decode_queens(problem, solution, n), n)
+    else:
+        ok = is_valid_tiling(decode_tiling(problem, solution, 6, 10))
+    if not ok:
+        raise AssertionError(f"{name}: the first solution found does not decode to a valid one")
+
+
+def phase_cover_main(dev):
+    """The cover path at full width: fused enumerations, second run timed."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_csp
+
+    cfg = cover_config()
+    launches = {}
+    for name, problem, roots in cover_instances(full=False):
+        t0 = time.perf_counter()
+        solve_csp(roots, problem, cfg, device=dev)
+        torch.cuda.synchronize()
+        log(f"[9] {name} run 1: {time.perf_counter() - t0:.3f} s")
+        cuda_cover.cover_fused_rounds_cuda.launches = 0
+        cuda_step.fused_rounds_cuda.launches = 0
+        cuda_propagate.propagate_fixpoint_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = solve_csp(roots, problem, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = cuda_cover.cover_fused_rounds_cuda.launches
+        others = cuda_step.fused_rounds_cuda.launches + cuda_propagate.propagate_fixpoint_cuda.launches
+        count = int(res.sol_count[0])
+        if count != COVER_COUNTS[name]:
+            raise AssertionError(f"{name}: counted {count}, expected {COVER_COUNTS[name]}")
+        if not bool(res.unsat[0]) or bool(res.overflowed[0]):
+            raise AssertionError(f"{name}: not exhausted ({bool(res.unsat[0])}) or overflowed "
+                                 f"({bool(res.overflowed[0])})")
+        if n <= 0 or others:
+            raise AssertionError(f"{name}: K3 launched {n} times, K1/K2 {others} times")
+        _check_cover_solution(name, problem, res.solution[0])
+        launches[name] = n
+        log(f"[9] {name} run 2: {count} solutions in {wall:.3f} s = {count / wall:.1f} "
+            f"solutions/s; dispatches {n}, steps {int(res.steps)}, nodes "
+            f"{int(res.nodes[0])}, sweeps {int(res.sweeps)}, steals {int(res.steals)}")
+    return launches
+
+
+def phase_cover_profile(dev) -> None:
+    """n-queens 14 once more under torch.profiler: device time by kernel and
+    the device's busy share of the host wall clock (a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_csp
+
+    name, problem, roots = cover_instances(full=False)[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_csp(roots, problem, cover_config(), device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    log(f"[9] profile {name}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+        f"({100 * busy_us / wall_us:.1f}% of wall)")
+    for key, us, count in rows[:8]:
+        log(f"    {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+
+
+def phase_cover_composite(sizes, dev):
+    """The composite cover path: an n-queens 12 count and the HARD_9 boards
+    solved as exact cover, each against the copied oracle."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.cover import (
+        decode_sudoku_cover,
+        sudoku_clue_rows,
+        sudoku_cover,
+    )
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_csp
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    cuda_cover.cover_fused_rounds_cuda.launches = 0
+    p = nqueens_cover(12)
+    cfg = cover_config(lanes=sizes["cover_composite_lanes"], step_impl="xla")
+    t0 = time.perf_counter()
+    res = solve_csp(p.initial_state()[None], p, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count = int(res.sol_count[0])
+    if count != COVER_COUNTS["nqueens12"] or not bool(res.unsat[0]) or bool(res.overflowed[0]):
+        raise AssertionError(f"composite nqueens12: counted {count}, unsat "
+                             f"{bool(res.unsat[0])}, overflowed {bool(res.overflowed[0])}")
+    log(f"[10] composite nqueens12: {count} solutions in {wall:.3f} s, steps "
+        f"{int(res.steps)}, sweeps {int(res.sweeps)}, nodes {int(res.nodes[0])}")
+
+    p = sudoku_cover(SUDOKU_9)
+    roots = np.stack([p.state_with_rows_taken(sudoku_clue_rows(h)) for h in HARD_9])
+    t0 = time.perf_counter()
+    res = solve_csp(roots, p, SolverConfig(min_lanes=64, stack_slots=64), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, h in enumerate(HARD_9):
+        grid = decode_sudoku_cover(p, res.solution[i], 9)
+        if not bool(res.solved[i]) or not np.array_equal(grid, solve_oracle(h)):
+            raise AssertionError(f"sudoku-cover: HARD_9[{i}] differs from the oracle's solution")
+    if cuda_cover.cover_fused_rounds_cuda.launches:
+        raise AssertionError("the composite cover path launched K3")
+    log(f"[10] composite sudoku-cover HARD_9: {len(HARD_9)} boards solved in {wall:.3f} s, "
+        f"steps {int(res.steps)}, nodes {int(res.nodes.sum())}; all equal the oracle")
+
+
 def main() -> int:
     import torch
 
@@ -397,7 +729,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step  # noqa: F401
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_propagate, cuda_step  # noqa: F401
 
     dev = torch.device("cuda")
     device = phase_device()
@@ -408,6 +740,10 @@ def main() -> int:
     main_launches = phase_main(corpus, dev)
     phase_profile(corpus, dev)
     comp_launches = phase_composite(corpus, SIZES, dev)
+    k3_err, k3_rows = phase_k3(SIZES, dev)
+    cover_launches = phase_cover_main(dev)
+    phase_cover_profile(dev)
+    phase_cover_composite(SIZES, dev)
     pkg = "distributed_sudoku_solver_tpu_torch/csrc"
     kernels = [
         dict(name="K1 propagate_fixpoint", route="cuda", source=f"{pkg}/propagate.cu",
@@ -416,6 +752,10 @@ def main() -> int:
         dict(name="K2 fused_rounds", route="cuda", source=f"{pkg}/fused_step.cu",
              replaces="distributed_sudoku_solver_tpu/ops/pallas_step.py:510",
              launches=main_launches["K2"], library_ms=None, **k2),
+        dict(name="K3 cover_fused_rounds", route="cuda", source=f"{pkg}/cover.cu",
+             replaces="distributed_sudoku_solver_tpu/ops/pallas_cover.py:545",
+             launches=sum(cover_launches.values()), max_abs_err=k3_err, library_ms=None,
+             **k3_rows["pentomino6x10"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

@@ -92,9 +92,11 @@ def _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_ru
             raise TypeError(f"{name} must be torch.int32, got {v.dtype}")
 
 
-def _tile_clear(top: torch.Tensor, live_rounds: torch.Tensor, tile: int) -> torch.Tensor:
+def _tile_clear(top: torch.Tensor, live_rounds: torch.Tensor, tile: int,
+                words: int | None = None) -> torch.Tensor:
     """Clear the top of each lane that was dead in a round its ``tile``-lane
-    tile still ran (fewer live rounds than the tile's busiest lane)."""
+    tile still ran (fewer live rounds than the tile's busiest lane); with
+    ``words``, only the first ``words`` entries of the last axis."""
     lanes = top.shape[0]
     if lanes == 0:
         return top
@@ -102,7 +104,10 @@ def _tile_clear(top: torch.Tensor, live_rounds: torch.Tensor, tile: int) -> torc
     if lanes % t:
         raise ValueError(f"lanes {lanes} not a multiple of tile {t}")
     tile_max = live_rounds.reshape(-1, t).amax(1).repeat_interleave(t)
-    return torch.where((live_rounds < tile_max)[:, None, None], torch.zeros_like(top), top)
+    dead = (live_rounds < tile_max).reshape(-1, *([1] * (top.ndim - 1)))
+    if words is not None:
+        dead = dead & (torch.arange(top.shape[-1], device=top.device) < words)
+    return torch.where(dead, torch.zeros_like(top), top)
 
 
 def status_full(cand: torch.Tensor, geom: Geometry) -> tuple[torch.Tensor, torch.Tensor]:
@@ -119,16 +124,14 @@ def status_full(cand: torch.Tensor, geom: Geometry) -> tuple[torch.Tensor, torch
     return solved, bad
 
 
-def fused_rounds_plain(
-    top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
-    branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
-    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2,
-):
-    """Plain torch re-statement of the round kernel, on any device."""
-    _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_rule)
+def _plain_rounds(top, stack, has_top, base, count, propagate, status, branch,
+                  k_steps: int, tile: int, count_mode: bool, words: int | None = None):
+    """The round loop of the plain versions of K2 and K3.  The family gives
+    ``propagate(tops) -> (tops, per-lane sweeps)``, ``status(tops) ->
+    (solved, contradiction)`` and ``branch(tops) -> (guess, rest)``;
+    ``words`` goes to :func:`_tile_clear`."""
     lanes, s = stack.shape[:2]
     dev = top.device
-    problem = SudokuCSP(geom, branch_rule, max_sweeps, "xla", rules)
     lane_idx = torch.arange(lanes, dtype=torch.int32, device=dev)
     zeros_l = torch.zeros(lanes, dtype=torch.int32, device=dev)
     top = top.clone()
@@ -144,13 +147,10 @@ def fused_rounds_plain(
         live = has
         if not bool(live.any()):
             break
-        tops, lane_sweeps = propagate_per_board(
-            torch.where(live[:, None, None], top, zero_b), geom, max_sweeps, rules,
-            unroll=sweep_unroll,
-        )
+        tops, lane_sweeps = propagate(torch.where(live[:, None, None], top, zero_b))
         live_r += live.to(torch.int32)
         sweeps += torch.where(live, lane_sweeps, zeros_l)
-        slv, con = status_full(tops, geom)
+        slv, con = status(tops)
         top_solved = slv & live
         top_contra = con & live
         newly = top_solved & ~solved_f
@@ -159,7 +159,7 @@ def fused_rounds_plain(
         if count_mode:
             sols += top_solved.to(torch.int32)
         undecided = live & ~top_solved & ~top_contra
-        guess, rest = problem.branch(tops)
+        guess, rest = branch(tops)
         can_push = undecided & (count < s)
         _write_rows(stack, lane_idx, (base + count) % s, can_push, rest)
         over_f = over_f | (undecided & ~can_push)
@@ -176,8 +176,36 @@ def fused_rounds_plain(
         count = count + can_push.to(torch.int32) - can_pop.to(torch.int32)
     steps_max = live_r.max() if lanes else torch.zeros((), dtype=torch.int32, device=dev)
     return (
-        _tile_clear(top, live_r, tile), stack, has, base, count, solved_f, sol, over_f,
+        _tile_clear(top, live_r, tile, words), stack, has, base, count, solved_f, sol, over_f,
         nodes, sols, live_r, sweeps.sum(dtype=torch.int32), steps_max.to(torch.int32),
+    )
+
+
+def _kernel_outputs(top_out, stack, base, sol, lane_out, tile: int, words: int | None = None):
+    """The 13-tuple from a round kernel's outputs.  ``lane_out`` rows (the
+    layout both K2 and K3 write): has, count, solved, overflow, nodes,
+    sols, live rounds, sweeps."""
+    has, cnt, solved, over, nodes, sols, live, sweeps = lane_out.unbind(0)
+    steps_max = live.max() if live.numel() else torch.zeros(
+        (), dtype=torch.int32, device=live.device)
+    return (
+        _tile_clear(top_out, live, tile, words), stack, has > 0, base.clone(), cnt, solved > 0,
+        sol, over > 0, nodes, sols, live, sweeps.sum(dtype=torch.int32), steps_max,
+    )
+
+
+def fused_rounds_plain(
+    top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
+    branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
+    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2,
+):
+    """Plain torch re-statement of the round kernel, on any device."""
+    _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_rule)
+    problem = SudokuCSP(geom, branch_rule, max_sweeps, "xla", rules)
+    return _plain_rounds(
+        top, stack, has_top, base, count,
+        lambda b: propagate_per_board(b, geom, max_sweeps, rules, unroll=sweep_unroll),
+        lambda b: status_full(b, geom), problem.branch, k_steps, tile, count_mode,
     )
 
 
@@ -221,12 +249,7 @@ def fused_rounds_cuda(
              sweep_unroll, stream)
     cuda_build.check(err, "dsst_fused_rounds")
     fused_rounds_cuda.launches += 1
-    has, cnt, solved, over, nodes, sols, live, sweeps = lane_out.unbind(0)
-    steps_max = live.max() if lanes else torch.zeros((), dtype=torch.int32, device=dev)
-    return (
-        _tile_clear(top_out, live, tile), stack, has > 0, base_i.clone(), cnt, solved > 0,
-        sol, over > 0, nodes, sols, live, sweeps.sum(dtype=torch.int32), steps_max,
-    )
+    return _kernel_outputs(top_out, stack, base_i, sol, lane_out, tile)
 
 
 fused_rounds_cuda.launches = 0
@@ -303,19 +326,26 @@ def _fused_live(fs) -> torch.Tensor:
     return fs.has_top & (fs.job >= 0) & ~fs.solved[job_safe]
 
 
-def _fused_round(fs: FusedFrontier, geom: Geometry, config) -> FusedFrontier:
-    """One kernel dispatch (``fused_steps`` rounds) + the job bookkeeping."""
+def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None) -> FusedFrontier:
+    """One kernel dispatch (``fused_steps`` rounds) + the job bookkeeping.
+
+    ``rounds_fn`` (FusedFrontier -> the 13-tuple of :func:`fused_rounds`)
+    swaps in another round kernel: the exact-cover kernel
+    (``ops/cuda_cover.py``) shares harvest, purge and steal this way;
+    ``None`` dispatches the Sudoku kernel on ``geom``."""
     n_jobs = fs.solved.shape[0]
     n_lanes = fs.has_top.shape[0]
     dev = fs.has_top.device
     job_safe = torch.clamp(fs.job, 0, n_jobs - 1).long()
+    if rounds_fn is None:
+        rounds_fn = lambda f: fused_rounds(  # noqa: E731
+            f.top, f.stack, f.has_top, f.base, f.count, geom,
+            rules=config.rules, branch_rule=config.branch, max_sweeps=config.max_sweeps,
+            k_steps=config.fused_steps, tile=min(128, n_lanes),
+            count_mode=config.count_all, sweep_unroll=config.fused_sweep_unroll,
+        )
     (top, stack, has_top, base, count, lane_solved, lane_sol, lane_over, nodes_d,
-     sols_d, liv_d, sweeps_t, steps_m) = fused_rounds(
-        fs.top, fs.stack, fs.has_top, fs.base, fs.count, geom,
-        rules=config.rules, branch_rule=config.branch, max_sweeps=config.max_sweeps,
-        k_steps=config.fused_steps, tile=min(128, n_lanes),
-        count_mode=config.count_all, sweep_unroll=config.fused_sweep_unroll,
-    )
+     sols_d, liv_d, sweeps_t, steps_m) = rounds_fn(fs)
 
     live_jobs = fs.job >= 0
     lane_ids = torch.arange(n_lanes, dtype=torch.int32, device=dev)
@@ -363,12 +393,14 @@ def _fused_round(fs: FusedFrontier, geom: Geometry, config) -> FusedFrontier:
     )
 
 
-def _run_fused(fs: FusedFrontier, geom: Geometry, config, limit: int) -> FusedFrontier:
+def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit: int,
+               rounds_fn=None) -> FusedFrontier:
     """Dispatch fused rounds until nothing is live or ``steps`` reaches
     ``limit`` (overshooting by up to ``fused_steps - 1``, as in JAX).
-    One host sync per dispatch reads the loop condition."""
+    One host sync per dispatch reads the loop condition.  ``rounds_fn``
+    swaps the round kernel (see :func:`_fused_round`)."""
     while bool(_fused_live(fs).any() & (fs.steps < limit)):
-        fs = _fused_round(fs, geom, config)
+        fs = _fused_round(fs, geom, config, rounds_fn)
     return fs
 
 

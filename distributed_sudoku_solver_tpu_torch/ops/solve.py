@@ -99,22 +99,36 @@ def sudoku_csp(geom: Geometry, config: SolverConfig) -> SudokuCSP:
 def _as_tensor(x, device: torch.device, dtype=torch.int32) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    a = np.asarray(x)
+    if a.dtype == np.uint32 and dtype == torch.int32:
+        a = a.view(np.int32)  # bit patterns (e.g. the JAX package's states)
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def solve_csp(
     states0, problem: CSProblem, config: SolverConfig = SolverConfig(), device=None
 ) -> SolveResult:
-    """Solve root states [J, h, w] of a CSP; the solution is the raw solved state."""
-    if problem.signature().startswith("cover:"):
-        raise NotImplementedError("exact cover is not ported yet")
+    """Solve root states [J, h, w] of a CSP; the solution is the raw solved state.
+
+    ``step_impl='fused'`` serves the exact-cover family through its round
+    kernel (``ops/cuda_cover.py``); Sudoku batches take it through
+    :func:`solve_batch`, and any other family raises."""
+    dev = resolve_device(device)
+    states0 = _as_tensor(states0, dev)
     if config.step_impl == "fused":
+        from distributed_sudoku_solver_tpu_torch.models.cover import ExactCoverCSP
+
+        if isinstance(problem, ExactCoverCSP):
+            from distributed_sudoku_solver_tpu_torch.ops.cuda_cover import solve_cover_fused
+
+            return solve_cover_fused(states0, problem, config)
+        # No fused kernel for other families; a silent composite fallback
+        # would mislabel what ran.
         raise ValueError(
-            "step_impl='fused' serves Sudoku batches through solve_batch; "
+            "step_impl='fused' supports the Sudoku and exact-cover families only; "
             f"got a generic {type(problem).__name__}"
         )
-    dev = resolve_device(device)
-    state = init_frontier(_as_tensor(states0, dev), config)
+    state = init_frontier(states0, config)
     return finalize_frontier(run_frontier(state, problem, config))
 
 

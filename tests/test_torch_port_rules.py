@@ -20,12 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_sudoku_solver_tpu_torch.models.cover import sudoku_clue_rows, sudoku_cover
 from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_4, SUDOKU_9, SUDOKU_16
-from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
+from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
+from distributed_sudoku_solver_tpu_torch.models.pentomino import pentomino_cover
+from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_propagate, cuda_step
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
 from distributed_sudoku_solver_tpu_torch.ops.bulk import solve_bulk
 from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
-from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch, solve_one
+from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch, solve_csp, solve_one
 from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, make_puzzle
 
 REPO = Path(__file__).resolve().parents[1]
@@ -100,6 +103,18 @@ def test_wrappers_never_fall_back_off_the_cpu():
         cuda_step.fused_rounds(meta, stack, lane.bool(), lane, lane, SUDOKU_9)
 
 
+def test_cover_wrapper_never_falls_back_off_the_cpu():
+    problem = nqueens_cover(6)
+    d = problem.state_shape[1]
+    top = torch.empty((2, 1, d), dtype=torch.int32, device="meta")
+    stack = torch.empty((2, 3, 1, d), dtype=torch.int32, device="meta")
+    lane = torch.empty(2, dtype=torch.int32, device="meta")
+    before = cuda_cover.cover_fused_rounds_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_cover.cover_fused_rounds(top, stack, lane.bool(), lane, lane, problem)
+    assert cuda_cover.cover_fused_rounds_cuda.launches == before
+
+
 def test_chip_smoke_fails_without_a_card():
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
@@ -163,3 +178,59 @@ def test_fused_solve_on_card_matches_cpu(cuda_device):
     want = solve_batch(grids, SUDOKU_9, cfg, device="cpu")
     for f in want._fields:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def _cover_frontier(problem, roots, lanes, slots, device, steps):
+    """A frontier fanned out from ``roots`` by plain enumeration rounds and steals."""
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import init_frontier
+
+    cfg = SolverConfig(lanes=lanes, stack_slots=slots, step_impl="fused", fused_steps=4,
+                       count_all=True)
+    state = init_frontier(torch.from_numpy(roots), cfg)
+    state = cuda_cover.advance_cover_fused(state, steps, problem, cfg)
+    return [t.to(device) for t in (state.top, state.stack, state.has_top, state.base,
+                                   state.count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_sweeps", [64, 1, 2])
+@pytest.mark.parametrize("count_mode", [False, True])
+@pytest.mark.parametrize("name", ["nqueens10", "pentomino3x20", "sudoku-cover9x9"])
+def test_k3_kernel_matches_plain(cuda_device, name, count_mode, max_sweeps):
+    if name == "nqueens10":
+        problem = nqueens_cover(10)
+        roots, steps = problem.initial_state()[None], 40
+    elif name == "pentomino3x20":
+        problem = pentomino_cover(3, 20)
+        roots, steps = problem.initial_state()[None], 40
+    else:
+        problem = sudoku_cover(SUDOKU_9)
+        roots = np.stack([problem.state_with_rows_taken(sudoku_clue_rows(h)) for h in HARD_9])
+        steps = 12
+    top, stack, has, base, count = _cover_frontier(problem, roots, 256, 16, cuda_device, steps)
+    if max_sweeps < 64:
+        # Some live lane's forced chain is cut at the cap in the first round,
+        # so the re-scan after the cap and a branch on a cnt == 1 column run.
+        capped, sweeps = problem.propagate_per_lane(top, max_sweeps)
+        cut = has & (capped != problem.propagate_per_lane(top, 64)[0]).flatten(1).any(1)
+        assert bool(cut.any()) and bool((sweeps[cut] == max_sweeps).all())
+    kw = dict(k_steps=6, count_mode=count_mode, max_sweeps=max_sweeps)
+    before = cuda_cover.cover_fused_rounds_cuda.launches
+    got = cuda_cover.cover_fused_rounds(top, stack.clone(), has, base, count, problem, **kw)
+    want = cuda_cover.cover_fused_rounds_plain(top, stack.clone(), has, base, count, problem,
+                                               **kw)
+    assert cuda_cover.cover_fused_rounds_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_fused_cover_solve_on_card_matches_cpu(cuda_device):
+    problem = nqueens_cover(8)
+    roots = np.repeat(problem.initial_state()[None], 3, axis=0)
+    cfg = SolverConfig(min_lanes=200, stack_slots=16, step_impl="fused", count_all=True)
+    got = solve_csp(roots, problem, cfg, device=cuda_device)
+    want = solve_csp(roots, problem, cfg, device="cpu")
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert got.sol_count.tolist() == [92, 92, 92]
