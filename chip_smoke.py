@@ -42,9 +42,31 @@ Phases, each of which must pass (nothing is caught and skipped):
 10. the composite cover path (``step_impl="xla"``): n-queens 12 must count
    14,200, and each HARD_9 board solved through ``sudoku_cover`` must
    decode to the copied oracle's solution;
-11. one JSON line ``{"kernels": [...]}`` (launches on the paths, times at
-   the path's shape, the plain version's time, the bound);
-12. the last line, ``{"ok": true, "device": {...}}``.
+11. K2 with each scored branch head (``head:minrem``, ``head:cw-slack``,
+   ``head:mlp``) against its plain version at phase 5's shape (count_mode
+   off), all 13 outputs bit-equal; the kernel's device time
+   (torch.profiler), the plain version's time and the bound of each;
+12. the head path at full width: ``solve_batch(step_impl="fused")`` on
+   32,768 corpus boards (HARD_9 among them) at 32,768 lanes with
+   ``minrem`` and each head: ``head:minrem``'s nodes and steps equal
+   ``minrem``'s, every rule solves every board with valid, clue-keeping
+   solutions (HARD_9 equal to the oracle's), K2 launched; boards/s and
+   nodes per rule;
+13. the latency flight as the serving megastep drives it: a one-slot,
+   8-lane mailbox (``steal_gang=8``, no step budget, fused,
+   ``head:cw-slack``) seeded from padding roots; per board (each HARD_9
+   and the corpus's two boards with the most nodes): ``attach_roots`` ->
+   ``advance_megastep_fused`` (64-round chunks, at most 64) -> the status
+   word and verdict payload in one transfer -> ``detach``; each verdict
+   equal to ``solve_one``'s; flight wall, chunks and host syncs (counted
+   with ``torch.cuda.set_sync_debug_mode``);
+14. snapshot resume: ``solve_batch_checkpointed`` on 4,096 boards,
+   interrupted after its first chunk, resumed from the snapshot on disk,
+   bit-identical to an uninterrupted run on every field;
+15. one JSON line ``{"kernels": [...]}`` (launches on the paths, times at
+   the path's shape, the plain version's time, the bound; K2 once more
+   for each head);
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -56,7 +78,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -71,7 +95,10 @@ PEAK_INT32_OPS_PER_S = 67e12 / 4
 
 SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, composite=4096,
              n16=2048, n25=512, reps=5, cover_lanes=4096, cover_slots=128,
-             cover_fanout_steps=160, cover_composite_lanes=1024)
+             cover_fanout_steps=160, cover_composite_lanes=1024, head_boards=32768,
+             flight_extra=2, snapshot_boards=4096, snapshot_chunk=8)
+
+HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
 
 # Enumeration counts the cover phases must reproduce exactly (OEIS A000170
 # for n-queens 14; 2,339 tilings x 4 symmetries for pentomino 6x10).
@@ -722,6 +749,303 @@ def phase_cover_composite(sizes, dev):
         f"steps {int(res.steps)}, nodes {int(res.nodes.sum())}; all equal the oracle")
 
 
+def head_score_ops(rule: str, n: int) -> tuple[int, int, int]:
+    """A head's work on top of phase 5's round, counted on the plain
+    algorithm: (int32 ops per branch: the unit sums, 4 per cell per unit
+    type; int32 ops per undecided cell: unpacking 3 unit words, the peer
+    and feature differences, the key and the min; float ops per undecided
+    cell: conversions, the score, the quantization and its clamp)."""
+    per_branch = 3 * n * n * 4
+    if rule == "head:minrem":
+        return per_branch, 3 + 6, 1 + 5
+    if rule == "head:cw-slack":
+        return per_branch, 6 + 5 + 3, 4 + 5
+    # 7 features (convert + scale), 8 hidden units of 7 products, 6 sums,
+    # the bias and the ReLU, 8 output products and 7 sums, the bias.
+    return per_branch, 6 + 6 + 3, 7 + 7 + 8 * (7 + 6 + 2) + 8 + 7 + 1 + 5
+
+
+def head_dispatch_work(top, stack, has, base, count, geom, rule, k) -> dict:
+    """Branches and undecided cells one head dispatch scores on this data,
+    from a plain replay of it (a dead lane enters as zeros, a contradiction,
+    and is not counted)."""
+    from distributed_sudoku_solver_tpu_torch.ops.bitmask import popcount
+    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
+        _plain_rounds,
+        head_branch_full,
+        status_full,
+    )
+    from distributed_sudoku_solver_tpu_torch.ops.propagate import propagate_per_board
+
+    work = {"branches": 0, "cells": 0}
+
+    def branch(tops):
+        solved, contra = status_full(tops, geom)
+        und = ~solved & ~contra
+        work["branches"] += int(und.sum())
+        work["cells"] += int(((popcount(tops) > 1) & und[:, None, None]).sum())
+        return head_branch_full(tops, geom, rule)
+
+    out = _plain_rounds(top, stack, has, base, count,
+                        lambda b: propagate_per_board(b, geom, 64, "extended", unroll=2),
+                        lambda b: status_full(b, geom), branch, k, 128, False)
+    if work["branches"] != int(out[8].sum()):
+        raise AssertionError(f"the work count saw {work['branches']} branches, the round "
+                             f"{int(out[8].sum())}")
+    return work
+
+
+def phase_k2_heads(corpus, sizes, dev):
+    """K2 with each scored head against its plain version at phase 5's
+    shape; device time from the profiler, the plain version's time, the
+    bound (a float op counts as half an int32 op: the H100's non-FMA f32
+    rate is twice its int32 rate)."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step as k2
+
+    geom = SUDOKU_9
+    lanes, slots, k = sizes["k2_lanes"], 12, 8
+    top, stack, has, base, count = _seeded_frontier(corpus, lanes, slots, dev)
+    rows = {}
+    for rule in HEAD_RULES:
+        kw = dict(rules="extended", branch_rule=rule, max_sweeps=64, k_steps=k, tile=128,
+                  count_mode=False, sweep_unroll=2)
+        got = k2.fused_rounds_cuda(top, stack.clone(), has, base, count, geom, **kw)
+        want = k2.fused_rounds_plain(top, stack.clone(), has, base, count, geom, **kw)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(a, b) for a, b in zip(got, want))
+        log(f"[11] K2 L={lanes} S={slots} k={k} {rule}: steps_max {int(got[12])} sweeps_total "
+            f"{int(got[11])} nodes {int(got[8].sum())} max_abs_err {e}")
+        if e:
+            raise AssertionError(f"K2 disagrees with its plain version: {rule}")
+
+        def run(st, kw=kw):
+            return k2.fused_rounds_cuda(top, st, has, base, count, geom, **kw)
+
+        ms = device_ms(run, sizes["reps"], stack.clone, "fused_kernel")
+        plain_ms = event_ms(lambda st, kw=kw: k2.fused_rounds_plain(top, st, has, base, count,
+                                                                   geom, **kw),
+                            1, setup=stack.clone)
+        nodes, live, sweeps_total = got[8], got[10], int(got[11])
+        if bool(got[7].any()):
+            raise AssertionError("the dispatch overflowed; the byte count assumes it does not")
+        pushes = int(nodes.sum())
+        pops = int((count + nodes - got[4]).sum())
+        n2 = geom.n * geom.n
+        n_bytes = (3 * lanes * n2 + (pushes + pops) * n2) * 4 + 11 * lanes * 4
+        work = head_dispatch_work(top, stack.clone(), has, base, count, geom, rule, k)
+        per_branch, int_cell, float_cell = head_score_ops(rule, geom.n)
+        n_ops = (sweeps_total * sweep_ops(geom, "extended") + int(live.sum()) * round_ops(geom)
+                 + work["branches"] * per_branch + work["cells"] * (int_cell + float_cell / 2))
+        bms, by = bound_ms(n_bytes, n_ops)
+        log(f"[11] K2 timing {rule}: {ms:.4f} ms (kernel, profiler), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.6f} ms ({by}); branches {work['branches']} undecided cells scored "
+            f"{work['cells']}")
+        rows[rule] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": by}
+    return rows
+
+
+def phase_heads_main(corpus, sizes, dev):
+    """``solve_batch(step_impl="fused")`` at full width with minrem and
+    each head; returns (launches per head, minrem's nodes per board)."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    grids = corpus[: sizes["head_boards"]]
+    base = dict(step_impl="fused", rules="extended")
+    solve_batch(grids, SUDOKU_9, SolverConfig(**base), device=dev)  # warm-up
+    torch.cuda.synchronize()
+    results, launches = {}, {}
+    for rule in ("minrem", *HEAD_RULES):
+        cuda_step.fused_rounds_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = solve_batch(grids, SUDOKU_9, SolverConfig(branch=rule, **base), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[rule] = cuda_step.fused_rounds_cuda.launches
+        res = res._replace(**{f: getattr(res, f).cpu() for f in res._fields})
+        check_solutions(grids, res.solution.numpy(), res.solved.numpy(), res.unsat.numpy(),
+                        f"heads {rule}")
+        for i, h in enumerate(HARD_9):
+            if not np.array_equal(res.solution[i].numpy(), solve_oracle(h)):
+                raise AssertionError(f"{rule}: HARD_9[{i}] differs from the oracle's solution")
+        if launches[rule] <= 0:
+            raise AssertionError(f"{rule}: the head path launched K2 no time")
+        results[rule] = res
+        log(f"[12] {rule}: {len(grids)} boards in {wall:.3f} s = {len(grids) / wall:.1f} boards/s; "
+            f"nodes {int(res.nodes.sum())}, steps {int(res.steps)}, steals {int(res.steals)}; "
+            f"K2 launches {launches[rule]}")
+    ref, same = results["minrem"], results["head:minrem"]
+    if not (torch.equal(same.nodes, ref.nodes) and int(same.steps) == int(ref.steps)):
+        raise AssertionError("head:minrem's nodes or steps differ from minrem's")
+    return launches, ref.nodes.numpy()
+
+
+def _count_syncs(fn, counts=None, stage=None):
+    """``fn()``; with ``counts``, its host syncs (torch's sync debug mode)
+    are added to ``counts[stage]``."""
+    import torch
+
+    if counts is None:
+        return fn()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counts[stage] = counts.get(stage, 0) + sum("synchroniz" in str(w.message) for w in seen)
+    return out
+
+
+def _fly(mailbox, board, cfg, dev, syncs=None):
+    """One latency flight: attach -> megastep -> status word and verdict
+    payload in one transfer -> detach.  Returns (mailbox, verdict); with
+    ``syncs`` (a dict), each stage's host syncs are counted into it."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops.bitmask import decode_grid, encode_grid
+    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import advance_megastep_fused
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import (
+        attach_roots,
+        detach,
+        status_len,
+        unpack_status,
+    )
+
+    def attach():
+        root = encode_grid(torch.from_numpy(board[None]).to(dev), SUDOKU_9)
+        return attach_roots(mailbox, root, torch.zeros(1, dtype=torch.int32, device=dev),
+                            cfg.steal_gang)
+
+    mailbox = _count_syncs(attach, syncs, "attach")
+    mailbox, status, chunks = _count_syncs(
+        lambda: advance_megastep_fused(mailbox, 64, 64, SUDOKU_9, cfg), syncs, "advance")
+    payload = _count_syncs(
+        lambda: torch.cat([status, mailbox.nodes, mailbox.sol_count,
+                           mailbox.overflowed.to(torch.int32),
+                           decode_grid(mailbox.solution).flatten()]).cpu().numpy(),
+        syncs, "fetch")
+    mailbox = _count_syncs(
+        lambda: detach(mailbox, torch.ones(1, dtype=torch.bool, device=dev)), syncs, "detach")
+    w = status_len(1)
+    info = unpack_status(payload[:w], 1)
+    verdict = dict(solved=bool(info["solved"][0]), has_work=bool(info["has_work"][0]),
+                   chunks=chunks, nodes=int(payload[w]), overflowed=bool(payload[w + 2]),
+                   solution=payload[w + 3:].reshape(9, 9), steps=info["steps"])
+    return mailbox, verdict
+
+
+def phase_flight(corpus, minrem_nodes, sizes, dev):
+    """The latency flight, shaped as the serving megastep shapes it."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig, init_frontier_roots
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_one
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    gang = 8  # MegastepConfig(): gang_lanes 8, chunk_steps 64, max_chunks 64
+    cfg = SolverConfig(step_impl="fused", branch="head:cw-slack", lanes=gang, min_lanes=gang,
+                       steal_gang=gang, max_steps=(1 << 31) - 1)
+    mailbox = init_frontier_roots(torch.zeros((gang, 9, 9), dtype=torch.int32, device=dev),
+                                  torch.full((gang,), -1, dtype=torch.int32, device=dev), 1, cfg)
+    hard = [int(i) for i in np.argsort(-minrem_nodes[len(HARD_9):])[: sizes["flight_extra"]]]
+    boards = [(f"HARD_9[{i}]", np.asarray(h, np.int32)) for i, h in enumerate(HARD_9)]
+    boards += [(f"corpus[{i + len(HARD_9)}]", corpus[i + len(HARD_9)]) for i in hard]
+    mailbox, _ = _fly(mailbox, boards[0][1], cfg, dev)  # warm-up
+    rows, launches = [], 0
+    for name, board in boards:
+        torch.cuda.synchronize()
+        cuda_step.fused_rounds_cuda.launches = 0
+        t0 = time.perf_counter()
+        mailbox, v = _fly(mailbox, board, cfg, dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches += cuda_step.fused_rounds_cuda.launches
+        # The same flight again, its host syncs counted by stage, then the reference.
+        syncs = {}
+        mailbox, again = _fly(mailbox, board, cfg, dev, syncs)
+        sol, res = solve_one(board, SUDOKU_9, cfg, device=dev)
+        unsat = not v["solved"] and not v["has_work"] and not v["overflowed"]
+        if v["has_work"] or v["solved"] != bool(res.solved[0]) or unsat != bool(res.unsat[0]):
+            raise AssertionError(f"flight {name}: verdict differs from solve_one's")
+        if sol is not None and not np.array_equal(v["solution"], sol):
+            raise AssertionError(f"flight {name}: solution differs from solve_one's")
+        if v["nodes"] != int(res.nodes[0]) or again["solution"].tolist() != v["solution"].tolist():
+            raise AssertionError(f"flight {name}: nodes or a repeated flight differ")
+        rows.append(dict(board=name, wall_ms=wall_ms, chunks=v["chunks"], syncs=syncs,
+                         nodes=v["nodes"], solved=v["solved"]))
+        log(f"[13] flight {name}: {wall_ms:.3f} ms, chunks {v['chunks']}, host syncs "
+            f"{sum(syncs.values())} {json.dumps(syncs)}, nodes {v['nodes']}, steps "
+            f"{v['steps']}, solved {v['solved']}; equals solve_one")
+    if launches <= 0:
+        raise AssertionError("the flights launched K2 no time")
+    return launches, rows
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def _interrupt(_state):
+    raise _Interrupt
+
+
+def phase_snapshot(corpus, sizes, dev):
+    """A checkpointed solve interrupted after its first chunk and resumed
+    from the snapshot on disk, against one never interrupted."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.utils.checkpoint import solve_batch_checkpointed
+
+    grids = corpus[: sizes["snapshot_boards"]]
+    cfg = SolverConfig(propagator="pallas")
+    kw = dict(chunk_steps=sizes["snapshot_chunk"], device=dev)
+    t0 = time.perf_counter()
+    whole = solve_batch_checkpointed(grids, SUDOKU_9, cfg, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frontier.npz")
+        try:
+            solve_batch_checkpointed(grids, SUDOKU_9, cfg, checkpoint_path=path,
+                                     on_chunk=_interrupt, **kw)
+            raise AssertionError("the checkpointed solve finished within its first chunk")
+        except _Interrupt:
+            pass
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        resumed = solve_batch_checkpointed(grids, SUDOKU_9, cfg, checkpoint_path=path, **kw)
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        if os.path.exists(path):
+            raise AssertionError("the snapshot was not removed on completion")
+    bad = [f for f in whole._fields if not torch.equal(getattr(whole, f), getattr(resumed, f))]
+    if bad:
+        raise AssertionError(f"the resumed solve differs from the uninterrupted one in {bad}")
+    check_solutions(grids, resumed.solution.cpu().numpy(), resumed.solved.cpu().numpy(),
+                    resumed.unsat.cpu().numpy(), "snapshot resume")
+    log(f"[14] snapshot: {len(grids)} boards, {int(whole.steps)} steps; uninterrupted "
+        f"{wall:.3f} s, resumed after step {sizes['snapshot_chunk']} from a {size} byte "
+        f"snapshot in {resume_wall:.3f} s; bit-identical on every field")
+
+
 def main() -> int:
     import torch
 
@@ -744,6 +1068,11 @@ def main() -> int:
     cover_launches = phase_cover_main(dev)
     phase_cover_profile(dev)
     phase_cover_composite(SIZES, dev)
+    k2_heads = phase_k2_heads(corpus, SIZES, dev)
+    head_launches, minrem_nodes = phase_heads_main(corpus, SIZES, dev)
+    flight_launches, _ = phase_flight(corpus, minrem_nodes, SIZES, dev)
+    head_launches["head:cw-slack"] += flight_launches
+    phase_snapshot(corpus, SIZES, dev)
     pkg = "distributed_sudoku_solver_tpu_torch/csrc"
     kernels = [
         dict(name="K1 propagate_fixpoint", route="cuda", source=f"{pkg}/propagate.cu",
@@ -757,6 +1086,10 @@ def main() -> int:
              launches=sum(cover_launches.values()), max_abs_err=k3_err, library_ms=None,
              **k3_rows["pentomino6x10"]),
     ]
+    kernels += [dict(name=f"K2 fused_rounds {rule}", route="cuda", source=f"{pkg}/fused_step.cu",
+                     replaces="distributed_sudoku_solver_tpu/ops/pallas_step.py:510",
+                     launches=head_launches[rule], library_ms=None, **k2_heads[rule])
+                for rule in HEAD_RULES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}), flush=True)

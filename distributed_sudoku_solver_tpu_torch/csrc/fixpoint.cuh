@@ -3,7 +3,7 @@
 // A board is n*n uint32 candidate masks (bit d set: digit d+1 possible),
 // n <= 32, held in the warp's slice of shared memory.  Each warp's slice
 // holds the board, two scratch boards and 96 unit-summary words
-// (warp_smem_words).  Thread `lane` of the warp owns cells lane, lane+32,
+// (warp_smem_words; a scored branch head reuses them for its unit sums).  Thread `lane` of the warp owns cells lane, lane+32,
 // ...; unit-summary phases give each thread the units lane, lane+32,
 // lane+64 of the 3n rows, columns and boxes.
 //
@@ -322,10 +322,74 @@ __device__ void board_status(const Geo& g, const unsigned* b, int lane, bool* so
   *solved = all_single && !bad;
 }
 
-// Branch cell of the board under rule (0 minrem, 1 first, 2 mixed,
-// 3 minrem-desc): the argmin of the unique key pc*n^2 + cell (minrem) or
-// cell (first) over undecided cells; -1 if no cell is undecided.
-__device__ int branch_cell(const Geo& g, const unsigned* b, int rule, int lane) {
+// Branch rules: the legacy rules 0 minrem, 1 first, 2 mixed,
+// 3 minrem-desc, then the scored heads of ops/ordering.py.
+constexpr int RULE_HEAD_MINREM = 4;
+constexpr int RULE_HEAD_CW_SLACK = 5;
+constexpr int RULE_HEAD_MLP = 6;
+constexpr int MLP_FEATURES = 7;
+constexpr int MLP_HIDDEN = 8;
+
+// Everything a head needs besides the board, as f32 values rounded on the
+// host exactly as JAX rounds its Python floats: the MLP's weights, b2 + 8
+// (summed in double, rounded once), 1/n and 1/n^2, the quant and the
+// clamp bound of pack_key.
+struct HeadParams {
+  float w1[MLP_FEATURES][MLP_HIDDEN];
+  float b1[MLP_HIDDEN];
+  float w2[MLP_HIDDEN];
+  float out_bias;
+  float inv_n, inv_n2, quant, qmax;
+};
+
+// A head's score of one undecided cell (pc > 1) from its unit sums:
+// excess = sum of (pc - 1) and und = number of undecided cells, over the
+// cell's row, column and box.  Every multiply and add is rounded on its
+// own (__fmul_rn / __fadd_rn never contract into an FMA), in the order of
+// the heads' score_full, so the score is the plain torch version's.
+__device__ __forceinline__ float head_score(const HeadParams& hp, int rule, int pc,
+                                            const int* ex, const int* und) {
+  if (rule == RULE_HEAD_MINREM) return (float)pc;
+  const int excess = pc - 1;
+  if (rule == RULE_HEAD_CW_SLACK) {
+    int peer = ex[0] + ex[1] + ex[2] - 3 * excess;
+    peer = peer < 2047 ? peer : 2047;
+    return __fadd_rn((float)pc, __fmul_rn((float)peer, 1.0f / 2048.0f));
+  }
+  float f[MLP_FEATURES];
+  f[0] = __fmul_rn((float)pc, hp.inv_n);
+  for (int i = 0; i < 3; ++i) f[1 + i] = __fmul_rn((float)(ex[i] - excess), hp.inv_n2);
+  for (int i = 0; i < 3; ++i) f[4 + i] = __fmul_rn((float)(und[i] - 1), hp.inv_n);
+  float out = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MLP_HIDDEN; ++j) {
+    float acc = __fmul_rn(f[0], hp.w1[0][j]);
+#pragma unroll
+    for (int i = 1; i < MLP_FEATURES; ++i) acc = __fadd_rn(acc, __fmul_rn(f[i], hp.w1[i][j]));
+    acc = __fadd_rn(acc, hp.b1[j]);
+    const float h = acc < 0.0f ? 0.0f : acc;
+    out = j == 0 ? __fmul_rn(h, hp.w2[0]) : __fadd_rn(out, __fmul_rn(h, hp.w2[j]));
+  }
+  return __fadd_rn(out, hp.out_bias);
+}
+
+// pack_key's quantized score: round half to even (rintf, as torch.round
+// and jnp.round), clamp in float to [0, qmax], then the int cast.
+__device__ __forceinline__ int head_quant(const HeadParams& hp, float score) {
+  float x = rintf(__fmul_rn(score, hp.quant));
+  x = x < 0.0f ? 0.0f : x;
+  x = x > hp.qmax ? hp.qmax : x;
+  return (int)x;
+}
+
+// Branch cell of the board under rule: the argmin of a unique per-cell
+// key over undecided cells (-1 if none is undecided).  Legacy keys are
+// pc*n^2 + cell (minrem) or cell (first); a head's key is
+// q*n^2 + cell with q its quantized score.  A head first writes each
+// unit's sums into `unit` (excess << 16 | und: excess <= 32*31 and
+// und <= 32 fit), so each thread then scores its own cells.
+__device__ int branch_cell(const Geo& g, const unsigned* b, unsigned* unit, int rule,
+                           const HeadParams& hp, int lane) {
   bool use_minrem = rule == 0 || rule == 3;
   if (rule == 2) {
     int h = 0;
@@ -333,11 +397,38 @@ __device__ int branch_cell(const Geo& g, const unsigned* b, int rule, int lane) 
     for (int off = 16; off > 0; off >>= 1) h += __shfl_xor_sync(FULL_WARP, h, off);
     use_minrem = (h & 1) == 0;
   }
+  const bool head = rule >= RULE_HEAD_MINREM;
+  if (head) {
+    for (int u = lane; u < 3 * g.n; u += 32) {
+      unsigned excess = 0, und = 0;
+      for (int k = 0; k < g.n; ++k) {
+        const unsigned pc = __popc(b[unit_cell(g, u, k)]);
+        if (pc > 1) {
+          excess += pc - 1;
+          ++und;
+        }
+      }
+      unit[u] = excess << 16 | und;
+    }
+    __syncwarp();
+  }
   int best = BIG_KEY;
   for (int c = lane; c < g.n2; c += 32) {
     const int pc = __popc(b[c]);
     if (pc > 1) {
-      const int key = use_minrem ? pc * g.n2 + c : c;
+      int key;
+      if (head) {
+        const int r = c / g.n, col = c % g.n;
+        const unsigned w[3] = {unit[r], unit[g.n + col], unit[2 * g.n + box_of(g, r, col)]};
+        int ex[3], und[3];
+        for (int i = 0; i < 3; ++i) {
+          ex[i] = (int)(w[i] >> 16);
+          und[i] = (int)(w[i] & 0xffffu);
+        }
+        key = head_quant(hp, head_score(hp, rule, pc, ex, und)) * g.n2 + c;
+      } else {
+        key = use_minrem ? pc * g.n2 + c : c;
+      }
       best = key < best ? key : best;
     }
   }

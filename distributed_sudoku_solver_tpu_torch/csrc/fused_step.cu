@@ -3,14 +3,18 @@
 // Replaces the TPU kernel fused_rounds
 // (distributed_sudoku_solver_tpu/ops/pallas_step.py: _fused_kernel with
 // status_full, branch_onehot_full, _select_slot, _write_slot and
-// _branch_dispatch_full; the head:* scored branch rules are not ported).
+// _branch_dispatch_full, with _head_branch_full and each head's score_full
+// from ops/ordering.py for the head:* scored branch rules).
 //
 // Each round of a live lane: sweep the top to its fixpoint, classify it,
 // capture the lane's first solution, pick the branch cell (warp argmin of
 // the unique key), push the rest child at stack slot (base+count)%S and
 // keep the guess as the top, or pop slot (base+count-1)%S on a
 // contradiction (and on a solve in count_mode), and flag an overflow when
-// the stack is full.
+// the stack is full.  A head:* rule scores each undecided cell from its
+// unit sums (branch_cell in fixpoint.cuh) and packs the score into the
+// same unique int32 key that the warp argmin takes; its f32 arithmetic is
+// rounded op by op as the plain torch version rounds it.
 //
 // What bounds it on an H100: the fixpoint's shared-memory and integer
 // work, and the serial chain of rounds and sweeps per lane; the device
@@ -34,7 +38,8 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
                              const int* __restrict__ count_in, unsigned* __restrict__ top_out,
                              unsigned* __restrict__ sol_out, int* __restrict__ lane_out,
                              int n_lanes, int S, Geo g, int rules, int rule,
-                             int max_sweeps, int k_steps, int count_mode, int unroll) {
+                             int max_sweeps, int k_steps, int count_mode, int unroll,
+                             const __grid_constant__ HeadParams hp) {
   extern __shared__ unsigned smem[];
   const int wib = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long l = (long long)blockIdx.x * WARPS_PER_BLOCK + wib;
@@ -67,7 +72,7 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
     const bool undecided = !slv && !con;
     const bool can_push = undecided && count < S;
     if (undecided) {
-      const int cell = branch_cell(g, w.b, rule, lane);
+      const int cell = branch_cell(g, w.b, w.unit, rule, hp, lane);
       const unsigned x = cell >= 0 ? w.b[cell] : 0u;
       const unsigned pick = pick_low ? lowest_bit(x) : highest_bit(x);
       if (can_push) {
@@ -112,8 +117,12 @@ extern "C" int dsst_fused_rounds(const void* top_in, void* stack, const void* ha
                                  const void* base_in, const void* count_in, void* top_out,
                                  void* sol_out, void* lane_out, int n_lanes, int S,
                                  int box_h, int box_w, int rules, int rule, int max_sweeps,
-                                 int k_steps, int count_mode, int unroll, void* stream) {
+                                 int k_steps, int count_mode, int unroll, const void* head,
+                                 void* stream) {
   const Geo g = make_geo(box_h, box_w);
+  // head: a HeadParams image for the head:* rules, NULL for the legacy ones.
+  HeadParams hp = {};
+  if (head != nullptr) hp = *(const HeadParams*)head;
   const int smem = WARPS_PER_BLOCK * warp_smem_words(g) * (int)sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(
       fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -123,7 +132,7 @@ extern "C" int dsst_fused_rounds(const void* top_in, void* stack, const void* ha
     fused_kernel<<<grid, WARPS_PER_BLOCK * 32, smem, (cudaStream_t)stream>>>(
         (const unsigned*)top_in, (unsigned*)stack, (const int*)has_in, (const int*)base_in,
         (const int*)count_in, (unsigned*)top_out, (unsigned*)sol_out, (int*)lane_out,
-        n_lanes, S, g, rules, rule, max_sweeps, k_steps, count_mode, unroll);
+        n_lanes, S, g, rules, rule, max_sweeps, k_steps, count_mode, unroll, hp);
   }
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,8 @@ class SudokuCSP:
 
     ``branch_rule``: 'minrem' (fewest candidates, MRV), 'first' (first
     undecided cell row-major, the oracle's order), 'minrem-desc' (MRV with
-    descending digits) or 'mixed' (a per-state hash picks minrem or first).
+    descending digits), 'mixed' (a per-state hash picks minrem or first),
+    or a scored head ``'head:<name>'`` (:mod:`..ops.ordering`).
     """
 
     geom: Geometry
@@ -98,6 +99,13 @@ class SudokuCSP:
         lanes = cand.shape[0]
         pc = popcount(cand).reshape(lanes, n * n)
         cell_idx = torch.arange(n * n, dtype=torch.int32, device=cand.device)
+        if ordering.is_head_rule(self.branch_rule):
+            # Scored head: f32 score -> the same packed argmin key shape.
+            head = ordering.get_head(self.branch_rule)
+            score = head.score_lanes(cand, self.geom)
+            key = ordering.pack_key(score, pc > 1, cell_idx, n, head.quant)
+            chosen = torch.argmin(key, dim=-1)
+            return (cell_idx[None, :] == chosen[:, None]).reshape(lanes, n, n)
         big = torch.full_like(pc, ordering.BIG)
         minrem_key = torch.where(pc > 1, pc * (n * n) + cell_idx, big)
         first_key = torch.where(pc > 1, cell_idx.expand_as(pc), big)

@@ -37,28 +37,31 @@ import ctypes
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
 from distributed_sudoku_solver_tpu_torch.models.sudoku import SudokuCSP
-from distributed_sudoku_solver_tpu_torch.ops import cuda_build
+from distributed_sudoku_solver_tpu_torch.ops import cuda_build, ordering
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import (
     is_single,
+    lowest_bit,
     once_twice_reduce,
     or_reduce,
+    popcount,
 )
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     FUSED_STEPS_DEVICE,
     _scatter_add,
     _scatter_min,
     _scatter_max_bool,
-    _scatter_true,
+    _set_rows,
     _steal,
     _write_rows,
     chunk_status,
     init_frontier,
+    megastep_chunks,
 )
-from distributed_sudoku_solver_tpu_torch.ops.ordering import LEGACY_RULES, is_head_rule
 from distributed_sudoku_solver_tpu_torch.ops.propagate import (
     RULE_TIERS,
     _unit_views,
@@ -72,10 +75,7 @@ _I = ctypes.c_int
 def _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_rule):
     if rules not in RULE_TIERS:
         raise ValueError(f"unknown rules {rules!r}")
-    if is_head_rule(branch_rule):
-        raise NotImplementedError(f"branch head {branch_rule!r}: not ported yet")
-    if branch_rule not in LEGACY_RULES:
-        raise ValueError(f"unknown branch rule {branch_rule!r}")
+    ordering.validate_branch(branch_rule)
     n = geom.n
     if top.ndim != 3 or tuple(top.shape[1:]) != (n, n):
         raise ValueError(f"top must be [L, {n}, {n}], got {tuple(top.shape)}")
@@ -194,6 +194,22 @@ def _kernel_outputs(top_out, stack, base, sol, lane_out, tile: int, words: int |
     )
 
 
+def head_branch_full(cand: torch.Tensor, geom: Geometry, rule: str):
+    """The fused round's branch under a scored head: the key from the
+    head's ``score_full`` (its separately rounded f32 chain, not the
+    composite step's matrix product), the lowest candidate digit as the
+    guess.  Returns ``(guess, rest)``."""
+    head = ordering.get_head(rule)
+    n, lanes = geom.n, cand.shape[0]
+    cell = torch.arange(n * n, dtype=torch.int32, device=cand.device)
+    score = head.score_full(cand, geom, lambda x: ordering._unit_sums_lanes(x, geom))
+    key = ordering.pack_key(score.reshape(lanes, n * n), popcount(cand).reshape(lanes, n * n) > 1,
+                            cell, n, head.quant)
+    onehot = (cell[None, :] == torch.argmin(key, dim=-1)[:, None]).reshape(lanes, n, n)
+    pick = lowest_bit(cand)
+    return torch.where(onehot, pick, cand), torch.where(onehot, cand & ~pick, cand)
+
+
 def fused_rounds_plain(
     top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
     branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
@@ -201,18 +217,50 @@ def fused_rounds_plain(
 ):
     """Plain torch re-statement of the round kernel, on any device."""
     _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_rule)
-    problem = SudokuCSP(geom, branch_rule, max_sweeps, "xla", rules)
+    if ordering.is_head_rule(branch_rule):
+        branch = lambda b: head_branch_full(b, geom, branch_rule)  # noqa: E731
+    else:
+        branch = SudokuCSP(geom, branch_rule, max_sweeps, "xla", rules).branch
     return _plain_rounds(
         top, stack, has_top, base, count,
         lambda b: propagate_per_board(b, geom, max_sweeps, rules, unroll=sweep_unroll),
-        lambda b: status_full(b, geom), problem.branch, k_steps, tile, count_mode,
+        lambda b: status_full(b, geom), branch, k_steps, tile, count_mode,
     )
+
+
+def rule_code(branch_rule: str) -> int:
+    """K2's code of a branch rule: the legacy rules 0-3, then the heads."""
+    if ordering.is_head_rule(branch_rule):
+        return len(ordering.LEGACY_RULES) + ordering.HEAD_NAMES.index(
+            branch_rule[len("head:"):])
+    return ordering.LEGACY_RULES.index(branch_rule)
+
+
+def head_params(branch_rule: str, geom: Geometry):
+    """K2's ``HeadParams`` image (``csrc/fixpoint.cuh``) for a head rule,
+    as float32 numpy: the MLP's w1 [7][8], b1, w2, then b2 + 8 (summed in
+    double), 1/n, 1/n^2, the quant and pack_key's bound, each rounded to
+    f32 once, as JAX rounds its Python floats.  ``None`` for a legacy rule."""
+    if not ordering.is_head_rule(branch_rule):
+        return None
+    head = ordering.get_head(branch_rule)
+    n = geom.n
+    if isinstance(head, ordering.MlpHead):
+        if len(head.w1) != 7 or any(len(r) != 8 for r in head.w1) or len(head.b1) != 8 \
+                or len(head.w2) != 8:
+            raise ValueError("K2 takes an MLP head of 7 features and 8 hidden units")
+        mlp = [v for row in head.w1 for v in row] + list(head.b1) + list(head.w2) + [
+            head.b2 + 8.0]
+    else:
+        mlp = [0.0] * (7 * 8 + 8 + 8 + 1)
+    return np.asarray(mlp + [1.0 / n, 1.0 / (n * n), head.quant, ordering._qmax(n)],
+                      dtype=np.float32)
 
 
 def _lib():
     lib = cuda_build.load("fused_step")
     fn = lib.dsst_fused_rounds
-    fn.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+    fn.argtypes = [_P] * 8 + [_I] * 10 + [_P, _P]
     fn.restype = _I
     return fn
 
@@ -242,11 +290,12 @@ def fused_rounds_cuda(
     sol = torch.empty_like(top)
     lane_out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    params = head_params(branch_rule, geom)  # host memory, copied at the launch
     err = fn(top.data_ptr(), stack.data_ptr(), has_i.data_ptr(), base_i.data_ptr(),
              count_i.data_ptr(), top_out.data_ptr(), sol.data_ptr(), lane_out.data_ptr(),
              lanes, s, geom.box_h, geom.box_w, RULE_TIERS.index(rules),
-             LEGACY_RULES.index(branch_rule), max_sweeps, k_steps, int(count_mode),
-             sweep_unroll, stream)
+             rule_code(branch_rule), max_sweeps, k_steps, int(count_mode),
+             sweep_unroll, None if params is None else params.ctypes.data, stream)
     cuda_build.check(err, "dsst_fused_rounds")
     fused_rounds_cuda.launches += 1
     return _kernel_outputs(top_out, stack, base_i, sol, lane_out, tile)
@@ -371,7 +420,7 @@ def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=Non
         solved = fs.solved | newly
         sol_count = solved.to(torch.int32)
 
-    overflowed = _scatter_true(fs.overflowed, torch.where(lane_over & live_jobs, fs.job, no_job))
+    overflowed = _set_rows(fs.overflowed, torch.where(lane_over & live_jobs, fs.job, no_job), True)
     nodes = _scatter_add(fs.nodes, torch.where(live_jobs, fs.job, no_job), nodes_d)
 
     job_live = live_jobs & ~solved[job_safe]
@@ -421,6 +470,20 @@ def advance_frontier_fused_status(state, steps_delta, geom: Geometry, config):
     by at most ``steps_delta`` more rounds; returns ``(state, status)``."""
     new = _advance_fused(state, int(state.steps) + int(steps_delta), geom, config)
     return new, chunk_status(state.steps, state.lane_rounds, new)
+
+
+def advance_megastep_fused(state, chunk_steps: int, max_chunks: int, geom: Geometry, config):
+    """Fused twin of ``ops.frontier.advance_megastep``: one latency-mode
+    flight of K2 dispatches in chunks of ``chunk_steps`` rounds, with the
+    same flight-start status baselines and early exit; returns
+    ``(state, status, chunks)``.  The host reads the loop condition once
+    per dispatch and once per chunk (JAX: once per flight)."""
+    config = config.with_fused_steps(FUSED_STEPS_DEVICE)
+    fs, status, chunks = megastep_chunks(
+        frontier_to_fused(state), lambda f, limit: _run_fused(f, geom, config, limit),
+        chunk_steps, max_chunks, config.max_steps,
+    )
+    return fused_to_frontier(fs), status, chunks
 
 
 def solve_batch_fused(grids: torch.Tensor, geom: Geometry, config):

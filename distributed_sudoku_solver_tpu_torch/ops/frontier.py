@@ -1,9 +1,10 @@
 """The lane-stack frontier: per-lane DFS stacks, work stealing, cancellation.
 
-Port of the JAX package's ``ops/frontier.py`` (the batch-solve half; the
-serving helpers wait for a later slice).  Each of L lanes owns a working
-state ``top[L, h, w]`` and a circular stack ``stack[L, S, h, w]`` of
-deferred siblings; every round each live lane propagates its top, then
+Port of the JAX package's ``ops/frontier.py``: the batch solve, the
+flight operations that serving runs between chunks (seed, attach, detach,
+purge, shed) and the latency-mode megastep.  Each of L lanes owns a
+working state ``top[L, h, w]`` and a circular stack ``stack[L, S, h, w]``
+of deferred siblings; every round each live lane propagates its top, then
 branches (guess becomes the top, rest is pushed) or pops on a
 contradiction, and idle lanes steal the bottom row of a working lane.
 
@@ -12,7 +13,8 @@ Layout and semantics are the JAX package's, lane-first.  Its
 sentinel index become scatters into a tensor one row longer whose last row
 is dropped, so no step needs a host sync for compaction.  The loops that
 JAX runs in-graph (``lax.while_loop``) are Python loops here: one host
-sync per round reads the loop condition.
+sync per round reads the loop condition, and the megastep's chunk loop
+reads its condition once per chunk (JAX syncs once per flight).
 
 :func:`frontier_step` writes the pushed rows into ``state.stack`` in place
 (the JAX advance functions donate the state for the same reason): the
@@ -41,8 +43,9 @@ class SolverConfig:
     """Static solver configuration: the JAX package's fields and values.
 
     ``propagator='pallas'`` selects the hand-written fixpoint kernel and
-    ``step_impl='fused'`` the hand-written round kernel.  The scored
-    ``head:*`` branch rules raise ``NotImplementedError`` (not ported yet).
+    ``step_impl='fused'`` the hand-written round kernel.  ``branch`` takes
+    the legacy rules and the scored heads ``head:minrem``,
+    ``head:cw-slack`` and ``head:mlp`` (:mod:`.ordering`).
     """
 
     lanes: int = 0
@@ -100,6 +103,13 @@ class SolverConfig:
         if lanes < n_jobs:
             raise ValueError(f"lanes={lanes} < n_jobs={n_jobs}")
         return lanes
+
+    def resolve_lanes_packed(self, n_roots: int) -> int:
+        """Lane count :func:`init_frontier_packed` uses for ``n_roots``
+        round-robin-dealt rows."""
+        if self.lanes > 0:
+            return self.lanes
+        return max(self.min_lanes, -(-n_roots // (1 + self.stack_slots)))
 
 
 class Frontier(NamedTuple):
@@ -196,25 +206,19 @@ def _seed_inverse(n_roots: int, n_lanes: int, device):
     return root_of, is_seed, safe_root
 
 
-def init_frontier(states0: torch.Tensor, config: SolverConfig) -> Frontier:
-    """Seed each job's root state into its own lane, strided over the lanes
-    (lane floor(j*L/J)); extra lanes start idle, as thieves."""
-    n_jobs, h, w = states0.shape
-    dev = states0.device
-    n_lanes = config.resolve_lanes(n_jobs)
-    s = config.stack_slots
-    root_of, is_seed, safe_root = _seed_inverse(n_jobs, n_lanes, dev)
-    rows = states0.to(torch.int32)[safe_root.long()]
-    top = torch.where(is_seed[:, None, None], rows, torch.zeros_like(rows))
+def _new_frontier(top, has_top, job, stack, count, n_jobs: int) -> Frontier:
+    """A frontier at step 0 over seeded lanes, with fresh job rows."""
+    n_lanes, h, w = top.shape
+    dev = top.device
     i32 = dict(dtype=torch.int32, device=dev)
     zero = torch.zeros((), **i32)
     return Frontier(
         top=top,
-        has_top=is_seed,
-        stack=torch.zeros((n_lanes, s, h, w), **i32),
+        has_top=has_top,
+        stack=stack,
         base=torch.zeros(n_lanes, **i32),
-        count=torch.zeros(n_lanes, **i32),
-        job=torch.where(is_seed, root_of, torch.full_like(root_of, -1)),
+        count=count,
+        job=job,
         solved=torch.zeros(n_jobs, dtype=torch.bool, device=dev),
         solution=torch.zeros((n_jobs, h, w), **i32),
         overflowed=torch.zeros(n_jobs, dtype=torch.bool, device=dev),
@@ -226,6 +230,159 @@ def init_frontier(states0: torch.Tensor, config: SolverConfig) -> Frontier:
         steals=zero.clone(),
         lane_rounds=torch.zeros(n_lanes, **i32),
     )
+
+
+def init_frontier(states0: torch.Tensor, config: SolverConfig) -> Frontier:
+    """Seed each job's root state into its own lane, strided over the lanes
+    (lane floor(j*L/J)); extra lanes start idle, as thieves."""
+    n_jobs, h, w = states0.shape
+    dev = states0.device
+    n_lanes = config.resolve_lanes(n_jobs)
+    root_of, is_seed, safe_root = _seed_inverse(n_jobs, n_lanes, dev)
+    rows = states0.to(torch.int32)[safe_root.long()]
+    top = torch.where(is_seed[:, None, None], rows, torch.zeros_like(rows))
+    return _new_frontier(
+        top, is_seed, torch.where(is_seed, root_of, torch.full_like(root_of, -1)),
+        torch.zeros((n_lanes, config.stack_slots, h, w), dtype=torch.int32, device=dev),
+        torch.zeros(n_lanes, dtype=torch.int32, device=dev), n_jobs,
+    )
+
+
+# -- flight operations: seed, attach, detach, purge, shed -----------------------
+
+
+def init_frontier_roots(
+    roots: torch.Tensor, job_of_root: torch.Tensor, n_jobs: int, config: SolverConfig
+) -> Frontier:
+    """Seed a frontier from R root states, each tagged with its owning job
+    (``job_of_root`` -1 = padding: the lane stays idle), strided over the
+    lanes as :func:`init_frontier` seeds them."""
+    n_roots, h, w = roots.shape
+    dev = roots.device
+    n_lanes = config.resolve_lanes(n_roots)
+    _, seeded, safe_root = _seed_inverse(n_roots, n_lanes, dev)
+    job_of = job_of_root.to(device=dev, dtype=torch.int32)[safe_root.long()]
+    is_seed = seeded & (job_of >= 0)
+    rows = roots.to(torch.int32)[safe_root.long()]
+    return _new_frontier(
+        torch.where(is_seed[:, None, None], rows, torch.zeros_like(rows)), is_seed,
+        torch.where(is_seed, job_of, torch.full_like(job_of, -1)),
+        torch.zeros((n_lanes, config.stack_slots, h, w), dtype=torch.int32, device=dev),
+        torch.zeros(n_lanes, dtype=torch.int32, device=dev), n_jobs,
+    )
+
+
+def init_frontier_packed(roots: torch.Tensor, valid, config: SolverConfig) -> Frontier:
+    """Seed ONE job's subtree roots at the configured lane width: row r
+    lands on lane ``r % L``, the first as the lane's top, the rest pushed
+    onto its stack (slot ``r // L - 1``).  ``valid`` masks padding rows,
+    which must come last."""
+    n_roots, h, w = roots.shape
+    s = config.stack_slots
+    dev = roots.device
+    n_lanes = config.resolve_lanes_packed(n_roots)
+    if n_roots > n_lanes * (1 + s):
+        raise ValueError(f"{n_roots} roots exceed frontier capacity {n_lanes}x(1+{s})")
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    rows = roots.to(torch.int32)
+
+    def seeds(r):  # the root at each grid position, and whether it is real
+        safe = torch.from_numpy(np.minimum(r, n_roots - 1)).to(dev)
+        exists = torch.from_numpy(r < n_roots).to(dev)
+        return rows[safe], exists & valid[safe]
+
+    r_top = np.arange(n_lanes)
+    top_rows, is_top = seeds(r_top)
+    st_rows, is_stack = seeds(r_top[:, None] + (np.arange(s)[None, :] + 1) * n_lanes)
+    return _new_frontier(
+        torch.where(is_top[:, None, None], top_rows, torch.zeros_like(top_rows)), is_top,
+        is_top.to(torch.int32) - 1,  # job 0 on a seeded lane, else -1
+        torch.where(is_stack[:, :, None, None], st_rows, torch.zeros_like(st_rows)),
+        is_stack.sum(1, dtype=torch.int32), 1,
+    )
+
+
+def purge_jobs(state: Frontier, dead: torch.Tensor) -> Frontier:
+    """Clear every lane owned by a job in ``dead`` (bool[J]), the mid-flight
+    cancel; purged unsolved jobs are marked overflowed, so they finalize
+    as unknown, never as unsat."""
+    n_jobs = state.solved.shape[0]
+    lane_dead = (state.job >= 0) & dead[torch.clamp(state.job, 0, n_jobs - 1).long()]
+    return state._replace(
+        has_top=state.has_top & ~lane_dead,
+        count=torch.where(lane_dead, torch.zeros_like(state.count), state.count),
+        overflowed=state.overflowed | (dead & ~state.solved),
+    )
+
+
+def attach_roots(state: Frontier, roots: torch.Tensor, slot_ids: torch.Tensor,
+                 gang: int = 1) -> Frontier:
+    """Seed up to K newly admitted jobs into a live frontier: root k lands
+    on its slot's home lane ``slot_ids[k] * gang`` (slot -1 = padding row,
+    dropped), and the slot's job rows are reset."""
+    n_lanes = state.has_top.shape[0]
+    n_jobs = state.solved.shape[0]
+    slot_ids = slot_ids.to(torch.int32)
+    ok = slot_ids >= 0
+    lane = torch.where(ok, slot_ids * gang, n_lanes)
+    slot = torch.where(ok, slot_ids, n_jobs)
+    return state._replace(
+        top=_set_rows(state.top, lane, roots.to(torch.int32)),
+        has_top=_set_rows(state.has_top, lane, ok),
+        job=_set_rows(state.job, lane, slot_ids),
+        base=_set_rows(state.base, lane, 0),
+        count=_set_rows(state.count, lane, 0),
+        solved=_set_rows(state.solved, slot, False),
+        solution=_set_rows(state.solution, slot, 0),
+        overflowed=_set_rows(state.overflowed, slot, False),
+        nodes=_set_rows(state.nodes, slot, 0),
+        sol_count=_set_rows(state.sol_count, slot, 0),
+    )
+
+
+def detach(state: Frontier, slot_mask: torch.Tensor) -> Frontier:
+    """Free every lane and job row of the jobs in ``slot_mask`` (bool[J])
+    after their verdicts were read: lanes cleared and untagged, rows reset
+    to their initial state."""
+    n_jobs = state.solved.shape[0]
+    lane_dead = (state.job >= 0) & slot_mask[torch.clamp(state.job, 0, n_jobs - 1).long()]
+    keep = ~slot_mask
+    return state._replace(
+        has_top=state.has_top & ~lane_dead,
+        count=torch.where(lane_dead, torch.zeros_like(state.count), state.count),
+        job=torch.where(lane_dead, torch.full_like(state.job, -1), state.job),
+        solved=state.solved & keep,
+        solution=torch.where(slot_mask[:, None, None], torch.zeros_like(state.solution),
+                             state.solution),
+        overflowed=state.overflowed & keep,
+        nodes=torch.where(slot_mask, torch.zeros_like(state.nodes), state.nodes),
+        sol_count=torch.where(slot_mask, torch.zeros_like(state.sol_count), state.sol_count),
+    )
+
+
+def shed_rows(state: Frontier, job_id, k: int):
+    """Extract up to ``k`` bottom stack rows of ``job_id`` (one per donor
+    lane, a bottom-pointer bump as in :func:`_steal`) for work elsewhere.
+    Returns ``(new_state, rows int32[k, h, w], valid bool[k])``; with
+    ``k`` above the lane count no row ships twice."""
+    n_lanes, s = state.stack.shape[:2]
+    n_jobs = state.solved.shape[0]
+    dev = state.job.device
+    job_live = (state.job == job_id) & ~state.solved[torch.clamp(state.job, 0, n_jobs - 1).long()]
+    donor_of = _lane_by_rank(job_live & (state.count >= 1), n_lanes)
+    idx = torch.arange(k, dtype=torch.int32, device=dev)
+    donor_lane = donor_of[torch.clamp(idx, 0, n_lanes - 1).long()]  # n_lanes if absent
+    valid = (idx < n_lanes) & (donor_lane < n_lanes)
+    safe = torch.clamp(donor_lane, 0, n_lanes - 1).long()
+    rows = state.stack[safe, (state.base[safe] % s).long()]
+    rows = torch.where(valid[:, None, None], rows, torch.zeros_like(rows))
+    donor_sel = _set_rows(torch.zeros(n_lanes, dtype=torch.bool, device=dev),
+                          torch.where(valid, donor_lane, n_lanes), True)
+    new_state = state._replace(
+        base=torch.where(donor_sel, (state.base + 1) % s, state.base),
+        count=torch.where(donor_sel, state.count - 1, state.count),
+    )
+    return new_state, rows, valid
 
 
 # -- scatters with a dropped sentinel row ---------------------------------------
@@ -245,10 +402,17 @@ def _scatter_add(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> t
     return out[:-1]
 
 
-def _scatter_true(base: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    out = torch.cat([base, base.new_zeros(1)])
-    out.scatter_(0, idx.long(), True)
-    return out[:-1]
+def _set_rows(base: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """``base.at[idx].set(vals, mode='drop')``: rows of ``idx`` outside
+    ``[0, len(base))`` are dropped (routed to a spare last row).  A scalar
+    ``vals`` is filled on the device: an index write of a Python scalar
+    would copy it from the host and synchronise."""
+    size = base.shape[0]
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.full((), vals, dtype=base.dtype, device=base.device)
+    out = torch.cat([base, base.new_zeros((1, *base.shape[1:]))])
+    out[torch.where((idx >= 0) & (idx < size), idx, size).long()] = vals
+    return out[:size]
 
 
 def _scatter_max_bool(size: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -327,9 +491,8 @@ def _steal(top, has_top, stack, base, count, job, job_live, gang: int = 0, thief
     has_top = has_top | stole
     job = torch.where(stole, job[safe], job)
 
-    donor_sel = torch.zeros(n_lanes + 1, dtype=torch.bool, device=dev)
-    donor_sel.scatter_(0, torch.where(pair, donor_lane, n_lanes).long(), True)
-    donor_sel = donor_sel[:n_lanes]
+    donor_sel = _set_rows(torch.zeros(n_lanes, dtype=torch.bool, device=dev),
+                          torch.where(pair, donor_lane, n_lanes), True)
     base = torch.where(donor_sel, (base + 1) % s, base)
     count = torch.where(donor_sel, count - 1, count)
     return top, has_top, base, count, job, n_pairs
@@ -404,8 +567,8 @@ def frontier_step(state: Frontier, problem: CSProblem, config: SolverConfig) -> 
         can_push = undecided & (count < s)
         stack = _write_rows(stack, lane_idx, (state.base + count) % s, can_push, rest)
         overflow_now = undecided & ~can_push
-    overflowed = _scatter_true(
-        state.overflowed, torch.where(overflow_now, state.job, sentinel_j)
+    overflowed = _set_rows(
+        state.overflowed, torch.where(overflow_now, state.job, sentinel_j), True
     )
     nodes = _scatter_add(
         state.nodes, torch.where(undecided, state.job, sentinel_j), undecided.to(torch.int32)
@@ -539,3 +702,61 @@ def unpack_status(status, n_jobs: int) -> dict:
         "solved": bits(status[STATUS_BITS : STATUS_BITS + w]),
         "has_work": bits(status[STATUS_BITS + w : STATUS_BITS + 2 * w]),
     }
+
+
+# -- latency-mode megastep --------------------------------------------------------
+
+
+def megastep_chunks(state, advance, chunk_steps: int, max_chunks: int, max_steps: int):
+    """The megastep's chunk loop, shared by the composite and fused forms.
+
+    ``advance(state, limit)`` runs rounds until nothing is live or
+    ``steps`` reaches ``limit``.  Every chunk's status is taken against
+    the flight-start baselines; the loop stops when no job has work, after
+    ``max_chunks`` chunks, or at ``max_steps``.  The host reads the steps
+    once, then the condition (has-work and steps, one transfer) once per
+    chunk.  Returns ``(state, status, chunks)``, ``chunks`` a host int."""
+    n_jobs = state.solved.shape[0]
+    w = (n_jobs + 31) // 32
+    steps0, rounds0 = state.steps, state.lane_rounds
+
+    def one_chunk(st, steps: int):
+        new = advance(st, min(steps + int(chunk_steps), max_steps))
+        return new, chunk_status(steps0, rounds0, new)
+
+    st, status = one_chunk(state, int(state.steps))
+    chunks = 1
+    while chunks < int(max_chunks):
+        alive = status[STATUS_BITS + w : STATUS_BITS + 2 * w].ne(0).any()
+        alive, steps = torch.stack([alive.to(torch.int32), st.steps]).tolist()
+        if not (alive and steps < max_steps):
+            break
+        st, status = one_chunk(st, steps)
+        chunks += 1
+    return st, status, chunks
+
+
+def run_frontier_megastep(state: Frontier, problem: CSProblem, config: SolverConfig,
+                          chunk_steps: int, max_chunks: int):
+    """Advance in chunks of ``chunk_steps`` rounds until every job is
+    solved or exhausted, ``max_chunks`` chunks ran, or ``config.max_steps``.
+
+    Returns ``(new_state, status, chunks)``: ``status`` is the packed word of
+    :func:`chunk_status` against the flight-start ``steps`` /
+    ``lane_rounds``, ``chunks`` how many chunks ran (>= 1), as in JAX
+    (here a host int: the host counted them)."""
+    return megastep_chunks(
+        state, lambda st, limit: run_frontier(st, problem, config, step_limit=limit),
+        chunk_steps, max_chunks, config.max_steps,
+    )
+
+
+def advance_megastep(state: Frontier, chunk_steps: int, max_chunks: int, geom,
+                     config: SolverConfig):
+    """One latency-mode flight of the composite step on Sudoku (the entry
+    point ``serving/megastep.py`` drives).  The stack is updated in place:
+    callers rebind the returned state."""
+    from distributed_sudoku_solver_tpu_torch.ops.solve import sudoku_csp
+
+    return run_frontier_megastep(state, sudoku_csp(geom, config), config, chunk_steps,
+                                 max_chunks)

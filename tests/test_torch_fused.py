@@ -132,5 +132,6 @@ def test_fused_lanes_rounding_and_admission():
     assert cuda_step.fused_lanes(32768, 25, 4096) == 32768  # no VMEM-style depth cap
     with pytest.raises(ValueError):
         cuda_step.fused_lanes(64, 9, 0)
-    with pytest.raises(NotImplementedError):
-        SolverConfig(branch="head:cw-slack")
+    assert SolverConfig(branch="head:cw-slack", step_impl="fused").branch == "head:cw-slack"
+    with pytest.raises(ValueError):
+        SolverConfig(branch="head:typo", step_impl="fused")

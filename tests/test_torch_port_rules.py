@@ -151,20 +151,23 @@ def test_k1_kernel_matches_plain(cuda_device, geom, rules):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("count_mode", [False, True])
-@pytest.mark.parametrize("branch", ["minrem", "first", "mixed", "minrem-desc"])
-def test_k2_kernel_matches_plain(cuda_device, branch, count_mode):
-    geom = SUDOKU_9
+@pytest.mark.parametrize("branch", ["minrem", "first", "mixed", "minrem-desc", "head:minrem",
+                                    "head:cw-slack", "head:mlp"])
+@pytest.mark.parametrize("geom", [SUDOKU_9, SUDOKU_16], ids=str)
+def test_k2_kernel_matches_plain(cuda_device, geom, branch, count_mode):
     lanes, slots = 384, 5
     top = encode_grid(torch.from_numpy(_corpus(geom, lanes, 2)).to(cuda_device), geom)
     stack = encode_grid(
         torch.from_numpy(_corpus(geom, lanes * slots, 9)).to(cuda_device), geom
-    ).reshape(lanes, slots, 9, 9).contiguous()
+    ).reshape(lanes, slots, geom.n, geom.n).contiguous()
     gen = np.random.default_rng(3)
     has = torch.from_numpy(gen.random(lanes) < 0.8).to(cuda_device)
     base = torch.from_numpy(gen.integers(0, slots, lanes).astype(np.int32)).to(cuda_device)
     count = torch.from_numpy(gen.integers(0, slots + 1, lanes).astype(np.int32)).to(cuda_device)
     kw = dict(rules="extended", branch_rule=branch, k_steps=6, count_mode=count_mode)
+    before = cuda_step.fused_rounds_cuda.launches
     got = cuda_step.fused_rounds(top, stack.clone(), has, base, count, geom, **kw)
+    assert cuda_step.fused_rounds_cuda.launches == before + 1
     want = cuda_step.fused_rounds_plain(top, stack.clone(), has, base, count, geom, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
