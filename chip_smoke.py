@@ -269,7 +269,7 @@ def phase_build() -> None:
     from distributed_sudoku_solver_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    seconds = cuda_build.build()
+    seconds = cuda_build.build(cuda_build.TARGETS + (("fused_step", "clocks"),))
     log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
         f"total {time.perf_counter() - t0:.2f} s")
     for name in cuda_build.SOURCES:
@@ -406,6 +406,28 @@ def phase_k2(corpus, sizes, dev):
     log(f"[5] K2 timing L={lanes}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
         f"({by}); pushes {pushes} pops {pops} sweeps {sweeps_total}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def phase_breakdown(corpus, sizes, dev) -> dict:
+    """K2's counter build at phase 5's shape, minrem and head:mlp: the share
+    of each stage in the warps' clock64() cycles ("other": loads, stores and
+    loop control outside the stages)."""
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step as k2
+
+    lanes, slots = sizes["k2_lanes"], 12
+    top, stack, has, base, count = _seeded_frontier(corpus, lanes, slots, dev)
+    out = {}
+    for rule in ("minrem", "head:mlp"):
+        cycles = k2.fused_rounds_stage_cycles(top, stack, has, base, count, SUDOKU_9,
+                                              reps=sizes["reps"], branch_rule=rule)
+        total = cycles.pop("total")
+        cycles["other"] = total - sum(cycles.values())
+        shares = {k: round(100 * v / total, 2) for k, v in cycles.items()}
+        out[rule] = shares
+        log(f"[5] K2 stage breakdown {rule} L={lanes} S={slots} k=8 extended "
+            f"(% of {total} warp cycles over {sizes['reps']} launches): {json.dumps(shares)}")
+    return out
 
 
 def check_solutions(grids, solution, solved, unsat, what: str) -> None:
@@ -1046,9 +1068,15 @@ def phase_snapshot(corpus, sizes, dev):
         f"snapshot in {resume_wall:.3f} s; bit-identical on every field")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--breakdown", action="store_true",
+                    help="phases 1-3 and K2's stage breakdown only (no result line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 1
@@ -1058,9 +1086,13 @@ def main() -> int:
     dev = torch.device("cuda")
     device = phase_device()
     phase_build()
+    if args.breakdown:
+        phase_breakdown(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
+        return 0
     corpus = phase_corpus(SIZES)
     k1 = phase_k1(corpus, SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
+    phase_breakdown(corpus, SIZES, dev)
     main_launches = phase_main(corpus, dev)
     phase_profile(corpus, dev)
     comp_launches = phase_composite(corpus, SIZES, dev)

@@ -61,6 +61,46 @@ struct WarpBufs {
   unsigned* unit;  // UNIT_WORDS unit summaries
 };
 
+// Per-stage clock counters of the counter build (-DDSST_STAGE_CLOCKS, a
+// library of its own name; ops/cuda_build.py).  Each warp adds the
+// clock64() cycles it spends in each stage into registers; its kernel adds
+// them into dsst_stage_cycles at its end (lane 0, one atomic per stage).
+// ST_TOTAL is the warp's whole run, so the cycles outside the stages
+// (loads, stores, loop control) are ST_TOTAL less the others.  Without the
+// define the struct is empty and every call compiles away.
+enum Stage { ST_ELIM, ST_HIDDEN, ST_BOXLINE, ST_SUBSETS, ST_STATUS, ST_BRANCH, ST_PUSHPOP,
+             ST_TOTAL, N_STAGES };
+
+#ifdef DSST_STAGE_CLOCKS
+__device__ unsigned long long dsst_stage_cycles[N_STAGES];
+
+struct StageClock {
+  long long acc[N_STAGES], start, t0;
+  __device__ StageClock() {
+    for (int i = 0; i < N_STAGES; ++i) acc[i] = 0;
+    start = t0 = clock64();
+  }
+  __device__ __forceinline__ void mark() { t0 = clock64(); }
+  __device__ __forceinline__ void stop(int s) {
+    const long long t = clock64();
+    acc[s] += t - t0;
+    t0 = t;
+  }
+  __device__ void flush(int lane) {
+    acc[ST_TOTAL] = clock64() - start;
+    if (lane == 0)
+      for (int i = 0; i < N_STAGES; ++i)
+        atomicAdd(&dsst_stage_cycles[i], (unsigned long long)acc[i]);
+  }
+};
+#else
+struct StageClock {
+  __device__ __forceinline__ void mark() {}
+  __device__ __forceinline__ void stop(int) {}
+  __device__ __forceinline__ void flush(int) {}
+};
+#endif
+
 __device__ __forceinline__ WarpBufs warp_bufs(unsigned* base, const Geo& g) {
   WarpBufs w;
   w.b = base;
@@ -94,8 +134,10 @@ __device__ __forceinline__ unsigned single_bits(const Geo& g, const unsigned* b,
 }
 
 // Stages 1 and 2: elimination, then hidden singles.
-__device__ bool sweep_basic(const Geo& g, unsigned* b, unsigned* unit, int lane) {
+__device__ bool sweep_basic(const Geo& g, unsigned* b, unsigned* unit, int lane,
+                            StageClock& clk) {
   const int n = g.n;
+  clk.mark();
   const unsigned pre_single = single_bits(g, b, lane);
   for (int u = lane; u < 3 * n; u += 32) {
     unsigned acc = 0;
@@ -118,6 +160,7 @@ __device__ bool sweep_basic(const Geo& g, unsigned* b, unsigned* unit, int lane)
     }
   }
   __syncwarp();
+  clk.stop(ST_ELIM);
   for (int u = lane; u < 3 * n; u += 32) {
     unsigned once = 0, twice = 0;
     for (int k = 0; k < n; ++k) {
@@ -139,6 +182,7 @@ __device__ bool sweep_basic(const Geo& g, unsigned* b, unsigned* unit, int lane)
     }
   }
   __syncwarp();
+  clk.stop(ST_HIDDEN);
   return changed;
 }
 
@@ -271,10 +315,17 @@ __device__ bool naked_subsets(const Geo& g, unsigned* b, unsigned* kill, unsigne
 
 // One sweep of the rule tier (0 basic, 1 extended, 2 subsets); true iff
 // the board changed.  Warp-uniform.
-__device__ bool one_sweep(const Geo& g, const WarpBufs& w, int rules, int lane) {
-  bool changed = sweep_basic(g, w.b, w.unit, lane);
-  if (rules >= 1) changed |= box_line(g, w.b, w.s1, w.s2, w.unit, lane);
-  if (rules >= 2) changed |= naked_subsets(g, w.b, w.s1, w.s2, lane);
+__device__ bool one_sweep(const Geo& g, const WarpBufs& w, int rules, int lane,
+                          StageClock& clk) {
+  bool changed = sweep_basic(g, w.b, w.unit, lane, clk);
+  if (rules >= 1) {
+    changed |= box_line(g, w.b, w.s1, w.s2, w.unit, lane);
+    clk.stop(ST_BOXLINE);
+  }
+  if (rules >= 2) {
+    changed |= naked_subsets(g, w.b, w.s1, w.s2, lane);
+    clk.stop(ST_SUBSETS);
+  }
   return __any_sync(FULL_WARP, changed);
 }
 
@@ -282,13 +333,13 @@ __device__ bool one_sweep(const Geo& g, const WarpBufs& w, int rules, int lane) 
 // a check, then checked sweeps until one changes nothing or max_sweeps.
 // Returns the sweeps run.
 __device__ int fixpoint(const Geo& g, const WarpBufs& w, int max_sweeps, int rules,
-                        int unroll, int lane) {
+                        int unroll, int lane, StageClock& clk) {
   int sweeps = 0;
   bool changed = true;
   const int pre = unroll < max_sweeps ? unroll : max_sweeps;
-  for (; sweeps < pre; ++sweeps) changed = one_sweep(g, w, rules, lane);
+  for (; sweeps < pre; ++sweeps) changed = one_sweep(g, w, rules, lane, clk);
   while (changed && sweeps < max_sweeps) {
-    changed = one_sweep(g, w, rules, lane);
+    changed = one_sweep(g, w, rules, lane, clk);
     ++sweeps;
   }
   return sweeps;

@@ -44,6 +44,7 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
   const int wib = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long l = (long long)blockIdx.x * WARPS_PER_BLOCK + wib;
   if (l >= n_lanes) return;  // the whole warp leaves together
+  StageClock clk;
   const WarpBufs w = warp_bufs(smem + wib * warp_smem_words(g), g);
   const int n2 = g.n2;
   const unsigned* src = top_in + l * n2;
@@ -61,13 +62,16 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
 
   for (int step = 0; has && step < k_steps; ++step) {
     ++live;
-    sweeps += fixpoint(g, w, max_sweeps, rules, unroll, lane);
+    sweeps += fixpoint(g, w, max_sweeps, rules, unroll, lane, clk);
     bool slv, con;
+    clk.mark();
     board_status(g, w.b, lane, &slv, &con);
+    clk.stop(ST_STATUS);
     if (slv && !solved_f) {
       for (int c = lane; c < n2; c += 32) my_sol[c] = w.b[c];
       solved_f = true;
     }
+    clk.stop(ST_PUSHPOP);
     if (count_mode && slv) ++sols;
     const bool undecided = !slv && !con;
     const bool can_push = undecided && count < S;
@@ -75,6 +79,7 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
       const int cell = branch_cell(g, w.b, w.unit, rule, hp, lane);
       const unsigned x = cell >= 0 ? w.b[cell] : 0u;
       const unsigned pick = pick_low ? lowest_bit(x) : highest_bit(x);
+      clk.stop(ST_BRANCH);
       if (can_push) {
         unsigned* dst = my_stack + (size_t)((base + count) % S) * n2;
         for (int c = lane; c < n2; c += 32) dst[c] = c == cell ? (x & ~pick) : w.b[c];
@@ -84,6 +89,7 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
       __syncwarp();
       if (!can_push) over_f = true;
       ++nodes;
+      clk.stop(ST_PUSHPOP);
     }
     const bool resolved = count_mode ? (slv || con) : con;
     const bool can_pop = resolved && count > 0;
@@ -91,6 +97,7 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
       const unsigned* row = my_stack + (size_t)((base + count - 1) % S) * n2;
       for (int c = lane; c < n2; c += 32) w.b[c] = row[c];
       __syncwarp();
+      clk.stop(ST_PUSHPOP);
     }
     has = !(resolved && !can_pop) && (count_mode || !slv);
     count += (can_push ? 1 : 0) - (can_pop ? 1 : 0);
@@ -111,6 +118,7 @@ __global__ void fused_kernel(const unsigned* __restrict__ top_in, unsigned* __re
     lane_out[6 * (long long)n_lanes + l] = live;
     lane_out[7 * (long long)n_lanes + l] = sweeps;
   }
+  clk.flush(lane);
 }
 
 extern "C" int dsst_fused_rounds(const void* top_in, void* stack, const void* has_in,
@@ -136,3 +144,14 @@ extern "C" int dsst_fused_rounds(const void* top_in, void* stack, const void* ha
   }
   return (int)cudaGetLastError();
 }
+
+#ifdef DSST_STAGE_CLOCKS
+// The counter build's cycles per stage (N_STAGES words) into host memory,
+// then zeroed.  Synchronous: call after the timed launches have finished.
+extern "C" int dsst_stage_cycles_take(void* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, dsst_stage_cycles, sizeof(dsst_stage_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[N_STAGES] = {};
+  return (int)cudaMemcpyToSymbol(dsst_stage_cycles, zero, sizeof(zero));
+}
+#endif

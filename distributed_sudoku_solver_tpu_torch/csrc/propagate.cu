@@ -33,7 +33,8 @@ __global__ void propagate_kernel(const unsigned* __restrict__ in, unsigned* __re
   const unsigned* src = in + board * g.n2;
   for (int c = lane; c < g.n2; c += 32) w.b[c] = src[c];
   __syncwarp();
-  const int s = fixpoint(g, w, max_sweeps, rules, 0, lane);
+  StageClock clk;
+  const int s = fixpoint(g, w, max_sweeps, rules, 0, lane, clk);
   unsigned* dst = out + board * g.n2;
   for (int c = lane; c < g.n2; c += 32) dst[c] = w.b[c];
   if (lane == 0) sweeps[board] = s;

@@ -4,8 +4,12 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface, for ``sm_90a`` (Hopper).  The build runs at first use,
 into ``_build/`` beside this package (git ignores it), under a name keyed
 by a hash of the sources and flags, so an edited source never loads a stale
-library.  :func:`build` starts one ``nvcc`` per source, all at once, and
+library.  :func:`build` starts one ``nvcc`` per target, all at once, and
 keeps ptxas's register / shared-memory / spill report beside each library.
+A target is a source and a variant: ``""`` is the library the package
+runs; ``"clocks"`` compiles the same source with ``-DDSST_STAGE_CLOCKS``
+(per-stage ``clock64()`` counters, ``csrc/fixpoint.cuh``) into a library of
+its own name, which only the stage breakdown loads.
 Nothing here runs when the module is imported.
 """
 
@@ -24,12 +28,14 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("propagate", "fused_step", "cover")
 HEADERS = ("fixpoint.cuh",)
+VARIANTS = {"": (), "clocks": ("-DDSST_STAGE_CLOCKS",)}
+TARGETS = tuple((name, "") for name in SOURCES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, str], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -46,63 +52,72 @@ def nvcc_path() -> str:
     )
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(variant: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + VARIANTS[variant]
+
+
+def _digest(name: str, variant: str) -> str:
+    h = hashlib.sha256(" ".join(_flags(variant)).encode())
     for f in (f"{name}.cu", *HEADERS):
         h.update(f.encode())
         h.update((CSRC_DIR / f).read_bytes())
     return h.hexdigest()[:16]
 
 
-def lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+def lib_name(name: str, variant: str = "") -> str:
+    """The library's name: the source's, with ``_<variant>`` for a variant."""
+    return f"{name}_{variant}" if variant else name
 
 
-def ptxas_report(name: str) -> str:
+def lib_path(name: str, variant: str = "") -> Path:
+    return BUILD_DIR / f"lib{lib_name(name, variant)}-{_digest(name, variant)}.so"
+
+
+def ptxas_report(name: str, variant: str = "") -> str:
     """ptxas's per-kernel resource lines from the build of ``name``."""
-    log = lib_path(name).with_suffix(".ptxas.txt")
+    log = lib_path(name, variant).with_suffix(".ptxas.txt")
     return log.read_text() if log.exists() else ""
 
 
-def build(names=SOURCES) -> dict[str, float]:
-    """Compile every library in ``names`` that is not built yet, all nvcc
+def build(targets=TARGETS) -> dict[str, float]:
+    """Compile every ``(source, variant)`` target not built yet, all nvcc
     processes started together; returns seconds per library built."""
-    todo = [n for n in names if not lib_path(n).exists()]
+    todo = [t for t in targets if not lib_path(*t).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name in todo:
-        tmp = lib_path(name).with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+    for name, variant in todo:
+        tmp = lib_path(name, variant).with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *_flags(variant), "-I", str(CSRC_DIR), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
+        procs[name, variant] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
     seconds: dict[str, float] = {}
     errors = []
-    for name, (tmp, proc) in procs.items():
+    for (name, variant), (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[lib_name(name, variant)] = time.perf_counter() - t0
         if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
+            errors.append(f"nvcc {name}.cu {variant} failed ({proc.returncode}):\n{out}")
             continue
-        lib_path(name).with_suffix(".ptxas.txt").write_text(out)
-        os.replace(tmp, lib_path(name))
+        lib_path(name, variant).with_suffix(".ptxas.txt").write_text(out)
+        os.replace(tmp, lib_path(name, variant))
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, variant: str = "") -> ctypes.CDLL:
+    """The loaded library of ``(name, variant)``, built first if needed."""
+    lib = _loaded.get((name, variant))
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _loaded[name] = lib
+        build(((name, variant),))
+        lib = ctypes.CDLL(str(lib_path(name, variant)))
+        _loaded[name, variant] = lib
     return lib
 
 

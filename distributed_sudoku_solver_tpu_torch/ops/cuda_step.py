@@ -257,20 +257,20 @@ def head_params(branch_rule: str, geom: Geometry):
                       dtype=np.float32)
 
 
-def _lib():
-    lib = cuda_build.load("fused_step")
+STAGES = ("elimination", "hidden singles", "box-line", "naked subsets", "status",
+          "branch", "push and pop", "total")
+
+
+def _lib(variant: str = ""):
+    lib = cuda_build.load("fused_step", variant)
     fn = lib.dsst_fused_rounds
     fn.argtypes = [_P] * 8 + [_I] * 10 + [_P, _P]
     fn.restype = _I
-    return fn
+    return lib
 
 
-def fused_rounds_cuda(
-    top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
-    branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
-    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2,
-):
-    """Launch K2 on CUDA tensors (no host sync); same returns as the plain version."""
+def _launch(variant, top, stack, has_top, base, count, geom, rules, branch_rule, max_sweeps,
+            k_steps, tile, count_mode, sweep_unroll):
     _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_rule)
     for name, v in (("top", top), ("stack", stack), ("has_top", has_top),
                     ("base", base), ("count", count)):
@@ -280,7 +280,7 @@ def fused_rounds_cuda(
         raise ValueError("fused_rounds_cuda needs contiguous top and stack")
     if max(k_steps, max_sweeps, sweep_unroll) >= 2**31 or k_steps < 0:
         raise ValueError("k_steps / max_sweeps / sweep_unroll out of int32 range")
-    fn = _lib()
+    lib = _lib(variant)
     lanes, s = stack.shape[:2]
     dev = top.device
     has_i = has_top.to(torch.int32).contiguous()
@@ -291,14 +291,50 @@ def fused_rounds_cuda(
     lane_out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     params = head_params(branch_rule, geom)  # host memory, copied at the launch
-    err = fn(top.data_ptr(), stack.data_ptr(), has_i.data_ptr(), base_i.data_ptr(),
-             count_i.data_ptr(), top_out.data_ptr(), sol.data_ptr(), lane_out.data_ptr(),
-             lanes, s, geom.box_h, geom.box_w, RULE_TIERS.index(rules),
-             rule_code(branch_rule), max_sweeps, k_steps, int(count_mode),
-             sweep_unroll, None if params is None else params.ctypes.data, stream)
+    err = lib.dsst_fused_rounds(
+        top.data_ptr(), stack.data_ptr(), has_i.data_ptr(), base_i.data_ptr(),
+        count_i.data_ptr(), top_out.data_ptr(), sol.data_ptr(), lane_out.data_ptr(),
+        lanes, s, geom.box_h, geom.box_w, RULE_TIERS.index(rules), rule_code(branch_rule),
+        max_sweeps, k_steps, int(count_mode), sweep_unroll,
+        None if params is None else params.ctypes.data, stream)
     cuda_build.check(err, "dsst_fused_rounds")
-    fused_rounds_cuda.launches += 1
     return _kernel_outputs(top_out, stack, base_i, sol, lane_out, tile)
+
+
+def fused_rounds_cuda(
+    top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
+    branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
+    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2,
+):
+    """Launch K2 on CUDA tensors (no host sync); same returns as the plain version."""
+    out = _launch("", top, stack, has_top, base, count, geom, rules, branch_rule,
+                  max_sweeps, k_steps, tile, count_mode, sweep_unroll)
+    fused_rounds_cuda.launches += 1
+    return out
+
+
+def fused_rounds_stage_cycles(top, stack, has_top, base, count, geom: Geometry, reps: int = 1,
+                              **kw) -> dict[str, int]:
+    """K2's counter build (``csrc/fixpoint.cuh``, ``-DDSST_STAGE_CLOCKS``)
+    launched ``reps`` times on the same inputs (``stack`` is cloned for each,
+    so every launch does the same work); returns the ``clock64()`` cycles
+    that all warps spent in each stage of :data:`STAGES`, summed over warps
+    and launches.  Synchronizes.  Not a main-path launch: the package runs
+    the library without counters, and this does not count in
+    ``fused_rounds_cuda.launches``."""
+    take = _lib("clocks").dsst_stage_cycles_take
+    take.argtypes = [_P]
+    take.restype = _I
+    cycles = np.zeros(len(STAGES), dtype=np.uint64)
+    torch.cuda.synchronize(top.device)
+    cuda_build.check(take(cycles.ctypes.data), "dsst_stage_cycles_take")  # zero it
+    for _ in range(reps):
+        _launch("clocks", top, stack.clone(), has_top, base, count, geom, **{
+            "rules": "extended", "branch_rule": "minrem", "max_sweeps": 64, "k_steps": 8,
+            "tile": 128, "count_mode": False, "sweep_unroll": 2, **kw})
+    torch.cuda.synchronize(top.device)
+    cuda_build.check(take(cycles.ctypes.data), "dsst_stage_cycles_take")
+    return {name: int(c) for name, c in zip(STAGES, cycles)}
 
 
 fused_rounds_cuda.launches = 0
