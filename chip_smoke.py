@@ -3,24 +3,33 @@
 
 Run from the repository root, on a machine with one CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase below
+    python3 chip_smoke.py --breakdown    # phases 1-3 and K2's stage breakdown only
+    python3 chip_smoke.py --times        # phases 1, 3 and K1's / K2's device times only
 
 Phases, each of which must pass (nothing is caught and skipped):
 
 1. print the card's name, the device count and ``nvidia-smi``'s name and
    power limit;
-2. build both kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together) and print ptxas's
-   registers / shared memory / spills;
+2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
+   (one ``nvcc`` per library, started together: K1, K2, K3 and K2's
+   counter build) and print, per kernel instantiation (K1 and K2 are
+   templates on the box shape), ptxas's registers, spills and stack frame
+   and the warps an SM holds at that register count; fails if K1 or K2
+   spills;
 3. generate the corpus: 65,533 seeded 24-clue 9x9 boards carved with
    ``make_puzzle(unique=False)`` plus ``HARD_9`` (every carved board keeps
    its parent solution, so no board may come back unsat);
 4. K1 (fixpoint) against its plain version: 32,768 boards on every rule
-   tier, plus 16x16 and 25x25 batches; masks and sweep counts bit-equal;
+   tier, plus 6x6, 12x12 (3x4 boxes, the run-time instantiation), 16x16
+   and 25x25 batches; masks and sweep counts bit-equal;
 5. K2 (fused rounds) against its plain version: one dispatch of a
    32,768-lane frontier seeded from the corpus (S=12, k_steps=8, extended
    rules) for every legacy branch rule, count_mode off and on; all 13
    outputs bit-equal (``sweeps_total`` under the port's per-lane sum);
+   timed with minrem at that shape and on an 8,192-lane 16x16 frontier;
+   then K2's counter build at the 9x9 shape with minrem and ``head:mlp``:
+   each stage's share of the warps' ``clock64()`` cycles (the breakdown);
 6. the main path, ``solve_bulk(corpus, SUDOKU_9, BulkConfig())`` twice:
    every solution valid and agreeing with its givens, no board unsat, K2's
    launch count above zero; boards/s of the second pass and its trace;
@@ -63,9 +72,10 @@ Phases, each of which must pass (nothing is caught and skipped):
 14. snapshot resume: ``solve_batch_checkpointed`` on 4,096 boards,
    interrupted after its first chunk, resumed from the snapshot on disk,
    bit-identical to an uninterrupted run on every field;
-15. one JSON line ``{"kernels": [...]}`` (launches on the paths, times at
-   the path's shape, the plain version's time, the bound; K2 once more
-   for each head);
+15. the seconds the script took, the build's among them, then one JSON
+   line ``{"kernels": [...]}`` (launches on the paths, times at the path's
+   shape, the plain version's time, the bound; K2 once more for each
+   head);
 16. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
@@ -93,8 +103,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12 / 4
 
-SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, composite=4096,
-             n16=2048, n25=512, reps=5, cover_lanes=4096, cover_slots=128,
+SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, composite=4096,
+             n6=8192, n12=2048, n16=2048, n25=512, reps=5, cover_lanes=4096, cover_slots=128,
              cover_fanout_steps=160, cover_composite_lanes=1024, head_boards=32768,
              flight_extra=2, snapshot_boards=4096, snapshot_chunk=8)
 
@@ -265,17 +275,32 @@ def phase_device() -> dict:
     return {"kind": name, "count": count, "smi": smi[0]}
 
 
-def phase_build() -> None:
+def phase_build() -> float:
+    """Build every library (one nvcc each, all at once) and print ptxas's
+    registers, spills and stack frame per kernel instantiation, with the
+    warps an SM holds at that register count (4-warp blocks, 64 warps at
+    most).  K1 and K2 must not spill in any instantiation."""
     from distributed_sudoku_solver_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
     seconds = cuda_build.build(cuda_build.TARGETS + (("fused_step", "clocks"),))
+    build_s = time.perf_counter() - t0
     log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
-        f"total {time.perf_counter() - t0:.2f} s")
+        f"total {build_s:.2f} s")
+    spills = []
     for name in cuda_build.SOURCES:
-        for line in cuda_build.ptxas_report(name).splitlines():
-            if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
-                log(f"    {name}: {line.strip()}")
+        for row in cuda_build.ptxas_kernels(cuda_build.ptxas_report(name)):
+            geo = "" if row["geometry"] is None else "<%d, %d>" % row["geometry"]
+            regs = row["registers"]
+            warps = min(64, 65536 // (128 * (-(-regs // 8) * 8)) * 4)
+            log(f"    {name} {row['kernel']}{geo}: {regs} registers, spill stores "
+                f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, stack frame "
+                f"{row['stack_frame']} B; {warps} warps/SM by registers")
+            if name != "cover" and (row["spill_stores"] or row["spill_loads"]):
+                spills.append(f"{row['kernel']}{geo}")
+    if spills:
+        raise AssertionError(f"K1/K2 instantiations spill: {spills}")
+    return build_s
 
 
 def make_corpus(geom, count: int, seed: int, n_clues=None, hard=()):
@@ -303,13 +328,21 @@ def phase_corpus(sizes):
 def phase_k1(corpus, sizes, dev):
     import torch
 
-    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_16, SUDOKU_25, SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.models.geometry import (
+        SUDOKU_6,
+        SUDOKU_9,
+        SUDOKU_16,
+        SUDOKU_25,
+        Geometry,
+    )
     from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate as k1
     from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
     from distributed_sudoku_solver_tpu_torch.ops.propagate import RULE_TIERS, propagate_per_board
 
     batches = [
         (SUDOKU_9, torch.from_numpy(corpus[: sizes["k1_boards"]])),
+        (SUDOKU_6, torch.from_numpy(make_corpus(SUDOKU_6, sizes["n6"], seed=17))),
+        (Geometry(3, 4), torch.from_numpy(make_corpus(Geometry(3, 4), sizes["n12"], seed=19))),
         (SUDOKU_16, torch.from_numpy(make_corpus(SUDOKU_16, sizes["n16"], seed=11))),
         (SUDOKU_25, torch.from_numpy(make_corpus(SUDOKU_25, sizes["n25"], seed=13))),
     ]
@@ -331,7 +364,13 @@ def phase_k1(corpus, sizes, dev):
     # encoded corpus boards, basic rules (phase 7's SolverConfig).
     geom = SUDOKU_9
     cand = encode_grid(torch.from_numpy(corpus[: sizes["composite"]]).to(dev), geom).contiguous()
-    ms = event_ms(lambda _: k1.propagate_fixpoint_cuda(cand, geom, 64, "basic"), sizes["reps"])
+    def run(c, rules="basic"):
+        return k1.propagate_fixpoint_cuda(c, geom, 64, rules)
+
+    # The kernel's device time (profiler): the wrapper's CUDA-event time
+    # also holds its host work and the sweep-count max.
+    ms = device_ms(run, sizes["reps"], lambda: cand, "propagate_kernel")
+    wrapper_ms = event_ms(lambda _: run(cand), sizes["reps"])
     plain_ms = event_ms(lambda _: k1.propagate_fixpoint_plain(cand, geom, 64, "basic"),
                         sizes["reps"])
     _, per_board = propagate_per_board(cand, geom, 64, "basic")
@@ -339,58 +378,60 @@ def phase_k1(corpus, sizes, dev):
     n_ops = int(per_board.sum()) * sweep_ops(geom, "basic")
     bms, by = bound_ms(n_bytes, n_ops)
     wide = encode_grid(torch.from_numpy(corpus[: sizes["k1_boards"]]).to(dev), geom).contiguous()
-    wide_ms = event_ms(lambda _: k1.propagate_fixpoint_cuda(wide, geom, 64, "extended"),
-                       sizes["reps"])
-    log(f"[4] K1 timing B={cand.shape[0]} basic: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bms:.6f} ms ({by}); B={wide.shape[0]} extended: {wide_ms:.4f} ms")
+    wide_ms = device_ms(lambda c: run(c, "extended"), sizes["reps"], lambda: wide,
+                        "propagate_kernel")
+    log(f"[4] K1 timing B={cand.shape[0]} basic: {ms:.4f} ms (kernel, profiler; wrapper "
+        f"{wrapper_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}); "
+        f"B={wide.shape[0]} extended: {wide_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
-def _seeded_frontier(corpus, lanes: int, slots: int, dev):
+def _seeded_frontier(corpus, lanes: int, slots: int, dev, geom=None):
     import torch
 
     from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
     from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
 
-    top = encode_grid(torch.from_numpy(corpus[:lanes]).to(dev), SUDOKU_9).contiguous()
-    stack = torch.zeros((lanes, slots, 9, 9), dtype=torch.int32, device=dev)
+    geom = geom or SUDOKU_9
+    top = encode_grid(torch.from_numpy(corpus[:lanes]).to(dev), geom).contiguous()
+    stack = torch.zeros((lanes, slots, geom.n, geom.n), dtype=torch.int32, device=dev)
     has = torch.ones(lanes, dtype=torch.bool, device=dev)
     zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
     return top, stack, has, zeros, zeros.clone()
 
 
-def phase_k2(corpus, sizes, dev):
+def _k2_check(frontier, geom, kw, what: str) -> int:
+    """K2 and its plain version on one dispatch; all 13 outputs must agree."""
     import torch
 
-    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
     from distributed_sudoku_solver_tpu_torch.ops import cuda_step as k2
-    from distributed_sudoku_solver_tpu_torch.ops.ordering import LEGACY_RULES
 
-    geom = SUDOKU_9
-    lanes, slots, k = sizes["k2_lanes"], 12, 8
-    top, stack, has, base, count = _seeded_frontier(corpus, lanes, slots, dev)
-    err = 0
-    for rule in LEGACY_RULES:
-        for count_mode in (False, True):
-            kw = dict(rules="extended", branch_rule=rule, max_sweeps=64, k_steps=k,
-                      tile=128, count_mode=count_mode, sweep_unroll=2)
-            got = k2.fused_rounds_cuda(top, stack.clone(), has, base, count, geom, **kw)
-            want = k2.fused_rounds_plain(top, stack.clone(), has, base, count, geom, **kw)
-            torch.cuda.synchronize()
-            e = max(max_abs_err(a, b) for a, b in zip(got, want))
-            log(f"[5] K2 L={lanes} S={slots} k={k} {rule} count_mode={count_mode}: "
-                f"steps_max {int(got[12])} sweeps_total {int(got[11])} "
-                f"nodes {int(got[8].sum())} max_abs_err {e}")
-            if e:
-                raise AssertionError(f"K2 disagrees with its plain version: {rule} {count_mode}")
-            err = max(err, e)
+    top, stack, has, base, count = frontier
+    got = k2.fused_rounds_cuda(top, stack.clone(), has, base, count, geom, **kw)
+    want = k2.fused_rounds_plain(top, stack.clone(), has, base, count, geom, **kw)
+    torch.cuda.synchronize()
+    e = max(max_abs_err(a, b) for a, b in zip(got, want))
+    log(f"[5] K2 {what} {kw['branch_rule']} count_mode={kw['count_mode']}: steps_max "
+        f"{int(got[12])} sweeps_total {int(got[11])} nodes {int(got[8].sum())} max_abs_err {e}")
+    if e:
+        raise AssertionError(f"K2 disagrees with its plain version: {what} {kw}")
+    return e
 
-    # Timing at the bulk first pass's shape (BulkConfig(): S=12, 8 rounds per
-    # dispatch, extended rules, minrem): the first dispatch of the chunk.
-    kw = dict(rules="extended", branch_rule="minrem", max_sweeps=64, k_steps=k, tile=128,
-              count_mode=False, sweep_unroll=2)
-    ms = event_ms(lambda s: k2.fused_rounds_cuda(top, s, has, base, count, geom, **kw),
-                  sizes["reps"], setup=stack.clone)
+
+def _k2_timing(frontier, geom, kw, sizes, what: str) -> dict:
+    """K2's device time on one dispatch (profiler; the wrapper's CUDA-event
+    time beside it), its plain version's, and the bound from this
+    dispatch's sweeps, rounds, pushes and pops."""
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step as k2
+
+    top, stack, has, base, count = frontier
+    lanes = top.shape[0]
+
+    def run(s):
+        return k2.fused_rounds_cuda(top, s, has, base, count, geom, **kw)
+
+    ms = device_ms(run, sizes["reps"], stack.clone, "fused_kernel")
+    wrapper_ms = event_ms(run, sizes["reps"], setup=stack.clone)
     plain_ms = event_ms(lambda s: k2.fused_rounds_plain(top, s, has, base, count, geom, **kw),
                         2, setup=stack.clone)
     out = k2.fused_rounds_cuda(top, stack.clone(), has, base, count, geom, **kw)
@@ -401,11 +442,42 @@ def phase_k2(corpus, sizes, dev):
     pops = int((count + nodes - out[4]).sum())
     n2 = geom.n * geom.n
     n_bytes = (3 * lanes * n2 + (pushes + pops) * n2) * 4 + 11 * lanes * 4
-    n_ops = sweeps_total * sweep_ops(geom, "extended") + int(live.sum()) * round_ops(geom)
+    n_ops = sweeps_total * sweep_ops(geom, kw["rules"]) + int(live.sum()) * round_ops(geom)
     bms, by = bound_ms(n_bytes, n_ops)
-    log(f"[5] K2 timing L={lanes}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-        f"({by}); pushes {pushes} pops {pops} sweeps {sweeps_total}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    log(f"[5] K2 timing {what}: {ms:.4f} ms (kernel, profiler; wrapper {wrapper_ms:.4f} ms, "
+        f"CUDA events), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}); pushes {pushes} "
+        f"pops {pops} sweeps {sweeps_total}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def phase_k2(corpus, sizes, dev):
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, SUDOKU_16
+    from distributed_sudoku_solver_tpu_torch.ops.ordering import LEGACY_RULES
+
+    geom = SUDOKU_9
+    lanes, slots, k = sizes["k2_lanes"], 12, 8
+    frontier = _seeded_frontier(corpus, lanes, slots, dev)
+    what = f"L={lanes} S={slots} k={k}"
+    err = 0
+    for rule in LEGACY_RULES:
+        for count_mode in (False, True):
+            kw = dict(rules="extended", branch_rule=rule, max_sweeps=64, k_steps=k,
+                      tile=128, count_mode=count_mode, sweep_unroll=2)
+            err = max(err, _k2_check(frontier, geom, kw, what))
+
+    # Timing at the bulk first pass's shape (BulkConfig(): S=12, 8 rounds per
+    # dispatch, extended rules, minrem): the first dispatch of the chunk;
+    # then the same dispatch on a 16x16 frontier.
+    kw = dict(rules="extended", branch_rule="minrem", max_sweeps=64, k_steps=k, tile=128,
+              count_mode=False, sweep_unroll=2)
+    row = _k2_timing(frontier, geom, kw, sizes, f"9x9 {what}")
+    lanes16 = sizes["k2_lanes16"]
+    frontier16 = _seeded_frontier(make_corpus(SUDOKU_16, lanes16, seed=23), lanes16, slots, dev,
+                                  SUDOKU_16)
+    what16 = f"16x16 L={lanes16} S={slots} k={k}"
+    err = max(err, _k2_check(frontier16, SUDOKU_16, kw, what16))
+    _k2_timing(frontier16, SUDOKU_16, kw, sizes, what16)
+    return {"max_abs_err": err, **row}
 
 
 def phase_breakdown(corpus, sizes, dev) -> dict:
@@ -428,6 +500,44 @@ def phase_breakdown(corpus, sizes, dev) -> dict:
         log(f"[5] K2 stage breakdown {rule} L={lanes} S={slots} k=8 extended "
             f"(% of {total} warp cycles over {sizes['reps']} launches): {json.dumps(shares)}")
     return out
+
+
+def phase_times(corpus, sizes, dev) -> dict:
+    """Kernel device times (torch.profiler) at the main path's shapes: K1 at
+    the composite path's B=4,096 (basic) and at B=32,768 (extended), K2 at
+    phase 5's shape with every branch rule and at 16x16.  It calls only what
+    every slice of the port provides, so a copy of this script run from
+    the root of an older checkout times that checkout's kernels (the
+    parent-versus-change comparison in PERF.md)."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, SUDOKU_16
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate as k1
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step as k2
+    from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
+    from distributed_sudoku_solver_tpu_torch.ops.ordering import LEGACY_RULES
+
+    times = {}
+    for boards, rules in ((sizes["composite"], "basic"), (sizes["k1_boards"], "extended")):
+        cand = encode_grid(torch.from_numpy(corpus[:boards]).to(dev), SUDOKU_9).contiguous()
+        times[f"K1 B={boards} {rules}"] = device_ms(
+            lambda c, rules=rules: k1.propagate_fixpoint_cuda(c, SUDOKU_9, 64, rules),
+            sizes["reps"], lambda cand=cand: cand, "propagate_kernel")
+    lanes16 = sizes["k2_lanes16"]
+    frontiers = [(SUDOKU_9, _seeded_frontier(corpus, sizes["k2_lanes"], 12, dev),
+                  (*LEGACY_RULES, *HEAD_RULES)),
+                 (SUDOKU_16, _seeded_frontier(make_corpus(SUDOKU_16, lanes16, seed=23), lanes16,
+                                              12, dev, SUDOKU_16), ("minrem",))]
+    for geom, (top, stack, has, base, count), rules in frontiers:
+        for rule in rules:
+            kw = dict(rules="extended", branch_rule=rule, max_sweeps=64, k_steps=8, tile=128,
+                      count_mode=False, sweep_unroll=2)
+            times[f"K2 {geom.n}x{geom.n} L={top.shape[0]} {rule}"] = device_ms(
+                lambda st, kw=kw, f=(top, has, base, count), geom=geom: k2.fused_rounds_cuda(
+                    f[0], st, f[1], f[2], f[3], geom, **kw),
+                sizes["reps"], stack.clone, "fused_kernel")
+    log(json.dumps({"times_ms": times}))
+    return times
 
 
 def check_solutions(grids, solution, solved, unsat, what: str) -> None:
@@ -1076,6 +1186,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--breakdown", action="store_true",
                     help="phases 1-3 and K2's stage breakdown only (no result line)")
+    ap.add_argument("--times", action="store_true",
+                    help="phases 1 and 3 and the kernels' device times only (no result line); "
+                         "runs against the checkout that holds this copy of the script")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1083,9 +1196,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_propagate, cuda_step  # noqa: F401
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     device = phase_device()
-    phase_build()
+    if args.times:
+        phase_times(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
+        return 0
+    build_s = phase_build()
     if args.breakdown:
         phase_breakdown(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
         return 0
@@ -1105,6 +1222,8 @@ def main(argv=None) -> int:
     flight_launches, _ = phase_flight(corpus, minrem_nodes, SIZES, dev)
     head_launches["head:cw-slack"] += flight_launches
     phase_snapshot(corpus, SIZES, dev)
+    log(f"[15] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
+        f"{build_s:.1f} s")
     pkg = "distributed_sudoku_solver_tpu_torch/csrc"
     kernels = [
         dict(name="K1 propagate_fixpoint", route="cuda", source=f"{pkg}/propagate.cu",

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -119,6 +120,50 @@ def load(name: str, variant: str = "") -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name, variant)))
         _loaded[name, variant] = lib
     return lib
+
+
+def compiled_geometries() -> tuple[tuple[int, int], ...]:
+    """The ``(box_h, box_w)`` shapes with a compile-time instantiation of
+    K1 and K2: ``DSST_FOR_EACH_GEOMETRY`` in ``csrc/fixpoint.cuh``."""
+    text = (CSRC_DIR / "fixpoint.cuh").read_text()
+    found = re.search(r"#define DSST_FOR_EACH_GEOMETRY\(X\)((?:\s*X\(\d+, *\d+\))+)", text)
+    if found is None:
+        raise RuntimeError("DSST_FOR_EACH_GEOMETRY not found in csrc/fixpoint.cuh")
+    return tuple((int(h), int(w)) for h, w in re.findall(r"X\((\d+), *(\d+)\)", found.group(1)))
+
+
+def instantiation(box_h: int, box_w: int) -> tuple[int, int]:
+    """The template arguments ``Geo<BH, BW>`` that K1 and K2 run for a box
+    shape: its own, or ``(0, 0)``, the instantiation with run-time
+    dimensions."""
+    return (box_h, box_w) if (box_h, box_w) in compiled_geometries() else (0, 0)
+
+
+def ptxas_kernels(report: str) -> list[dict]:
+    """Per kernel instantiation in a ptxas ``-v`` report: its name, its
+    ``Geo<BH, BW>`` template arguments (None for a kernel without them),
+    registers, spill stores and loads and stack frame, in bytes."""
+    rows: list[dict] = []
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = re.search(r"\d+([a-z_]+_kernel)", mangled)
+            geo = re.search(r"ILi(\d+)ELi(\d+)E", mangled)
+            rows.append({"kernel": name.group(1) if name else mangled,
+                         "geometry": (int(geo.group(1)), int(geo.group(2))) if geo else None})
+            continue
+        if not rows:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            rows[-1].update(stack_frame=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                            spill_loads=int(frame.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            rows[-1]["registers"] = int(regs.group(1))
+    return rows
 
 
 def check(err: int, what: str) -> None:

@@ -313,8 +313,11 @@ def fused_rounds_cuda(
     return out
 
 
-def fused_rounds_stage_cycles(top, stack, has_top, base, count, geom: Geometry, reps: int = 1,
-                              **kw) -> dict[str, int]:
+def fused_rounds_stage_cycles(
+    top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
+    branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
+    count_mode: bool = False, sweep_unroll: int = 2, reps: int = 1,
+) -> dict[str, int]:
     """K2's counter build (``csrc/fixpoint.cuh``, ``-DDSST_STAGE_CLOCKS``)
     launched ``reps`` times on the same inputs (``stack`` is cloned for each,
     so every launch does the same work); returns the ``clock64()`` cycles
@@ -329,9 +332,8 @@ def fused_rounds_stage_cycles(top, stack, has_top, base, count, geom: Geometry, 
     torch.cuda.synchronize(top.device)
     cuda_build.check(take(cycles.ctypes.data), "dsst_stage_cycles_take")  # zero it
     for _ in range(reps):
-        _launch("clocks", top, stack.clone(), has_top, base, count, geom, **{
-            "rules": "extended", "branch_rule": "minrem", "max_sweeps": 64, "k_steps": 8,
-            "tile": 128, "count_mode": False, "sweep_unroll": 2, **kw})
+        _launch("clocks", top, stack.clone(), has_top, base, count, geom, rules, branch_rule,
+                max_sweeps, k_steps, 128, count_mode, sweep_unroll)
     torch.cuda.synchronize(top.device)
     cuda_build.check(take(cycles.ctypes.data), "dsst_stage_cycles_take")
     return {name: int(c) for name, c in zip(STAGES, cycles)}

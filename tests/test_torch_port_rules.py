@@ -21,7 +21,14 @@ import pytest
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.cover import sudoku_clue_rows, sudoku_cover
-from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_4, SUDOKU_9, SUDOKU_16
+from distributed_sudoku_solver_tpu_torch.models.geometry import (
+    SUDOKU_4,
+    SUDOKU_6,
+    SUDOKU_9,
+    SUDOKU_16,
+    SUDOKU_25,
+    Geometry,
+)
 from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
 from distributed_sudoku_solver_tpu_torch.models.pentomino import pentomino_cover
 from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_propagate, cuda_step
@@ -132,6 +139,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Every shipped geometry (a compile-time instantiation each), then two box
+# shapes that take the instantiation with run-time dimensions; 4x8 is
+# n = 32, so bit 31 of the masks is set.
+KERNEL_GEOMETRIES = [SUDOKU_4, SUDOKU_6, SUDOKU_9, SUDOKU_16, SUDOKU_25, Geometry(3, 4),
+                     Geometry(4, 8)]
+
+
 def _corpus(geom, count, seed):
     return np.stack([make_puzzle(geom, seed + i, unique=False) for i in range(count)]).astype(
         np.int32)
@@ -139,7 +153,7 @@ def _corpus(geom, count, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rules", ["basic", "extended", "subsets"])
-@pytest.mark.parametrize("geom", [SUDOKU_4, SUDOKU_9, SUDOKU_16], ids=str)
+@pytest.mark.parametrize("geom", KERNEL_GEOMETRIES, ids=str)
 def test_k1_kernel_matches_plain(cuda_device, geom, rules):
     cand = encode_grid(torch.from_numpy(_corpus(geom, 300, 1)).to(cuda_device), geom).contiguous()
     before = cuda_propagate.propagate_fixpoint_cuda.launches
@@ -153,9 +167,9 @@ def test_k1_kernel_matches_plain(cuda_device, geom, rules):
 @pytest.mark.parametrize("count_mode", [False, True])
 @pytest.mark.parametrize("branch", ["minrem", "first", "mixed", "minrem-desc", "head:minrem",
                                     "head:cw-slack", "head:mlp"])
-@pytest.mark.parametrize("geom", [SUDOKU_9, SUDOKU_16], ids=str)
+@pytest.mark.parametrize("geom", KERNEL_GEOMETRIES, ids=str)
 def test_k2_kernel_matches_plain(cuda_device, geom, branch, count_mode):
-    lanes, slots = 384, 5
+    lanes, slots = (384 if geom.n <= 16 else 128), 5
     top = encode_grid(torch.from_numpy(_corpus(geom, lanes, 2)).to(cuda_device), geom)
     stack = encode_grid(
         torch.from_numpy(_corpus(geom, lanes * slots, 9)).to(cuda_device), geom
