@@ -4,16 +4,16 @@
 Run from the repository root, on a machine with one CUDA card and ``nvcc``:
 
     python3 chip_smoke.py                # every phase below
-    python3 chip_smoke.py --breakdown    # phases 1-3 and K2's stage breakdown only
-    python3 chip_smoke.py --times        # phases 1, 3 and K1's / K2's device times only
+    python3 chip_smoke.py --breakdown    # phases 1-3 and K2's and K3's stage breakdowns only
+    python3 chip_smoke.py --times        # phases 1, 3 and K1's / K2's / K3's device times only
 
 Phases, each of which must pass (nothing is caught and skipped):
 
 1. print the card's name, the device count and ``nvidia-smi``'s name and
    power limit;
 2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
-   (one ``nvcc`` per library, started together: K1, K2, K3 and K2's
-   counter build) and print, per kernel instantiation (K1 and K2 are
+   (one ``nvcc`` per library, started together: K1, K2, K3 and K2's and
+   K3's counter builds) and print, per kernel instantiation (K1 and K2 are
    templates on the box shape), ptxas's registers, spills and stack frame
    and the warps an SM holds at that register count; fails if K1 or K2
    spills;
@@ -42,7 +42,9 @@ Phases, each of which must pass (nothing is caught and skipped):
    ``sudoku_cover(SUDOKU_9)`` (HARD_9 clue roots), fanned out by driver
    rounds; one dispatch (k_steps=8) with count_mode off and on, all 13
    outputs bit-equal; the kernel's device time (torch.profiler), the
-   wrapper's CUDA-event time, plain time and bound of each;
+   wrapper's CUDA-event time, plain time and bound of each; then K3's
+   counter build on each frontier: each stage's share of the warps'
+   ``clock64()`` cycles, and the longest warp's cycles against the mean;
 9. the cover path at full width, ``solve_csp`` with ``step_impl="fused"``,
    4,096 lanes, S=128, ``count_all``, ``steal_rounds=4``: n-queens 14 must
    count 365,596 and pentomino 6x10 9,356, exhausted, no overflow, K3's
@@ -283,7 +285,8 @@ def phase_build() -> float:
     from distributed_sudoku_solver_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    seconds = cuda_build.build(cuda_build.TARGETS + (("fused_step", "clocks"),))
+    seconds = cuda_build.build(cuda_build.TARGETS + (("fused_step", "clocks"),
+                                                      ("cover", "clocks")))
     build_s = time.perf_counter() - t0
     log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
         f"total {build_s:.2f} s")
@@ -505,13 +508,15 @@ def phase_breakdown(corpus, sizes, dev) -> dict:
 def phase_times(corpus, sizes, dev) -> dict:
     """Kernel device times (torch.profiler) at the main path's shapes: K1 at
     the composite path's B=4,096 (basic) and at B=32,768 (extended), K2 at
-    phase 5's shape with every branch rule and at 16x16.  It calls only what
+    phase 5's shape with every branch rule and at 16x16, K3 at phase 8's
+    three frontiers (count_mode on).  It calls only what
     every slice of the port provides, so a copy of this script run from
     the root of an older checkout times that checkout's kernels (the
     parent-versus-change comparison in PERF.md)."""
     import torch
 
     from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, SUDOKU_16
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover as k3
     from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate as k1
     from distributed_sudoku_solver_tpu_torch.ops import cuda_step as k2
     from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
@@ -536,6 +541,12 @@ def phase_times(corpus, sizes, dev) -> dict:
                 lambda st, kw=kw, f=(top, has, base, count), geom=geom: k2.fused_rounds_cuda(
                     f[0], st, f[1], f[2], f[3], geom, **kw),
                 sizes["reps"], stack.clone, "fused_kernel")
+    for name, problem, (top, stack, has, base, count) in cover_frontiers(sizes, dev):
+        kw = dict(max_sweeps=problem.max_sweeps, k_steps=8, tile=128, count_mode=True)
+        times[f"K3 {name} L={top.shape[0]}"] = device_ms(
+            lambda st, kw=kw, f=(top, has, base, count), p=problem: k3.cover_fused_rounds_cuda(
+                f[0], st, f[1], f[2], f[3], p, **kw),
+            sizes["reps"], stack.clone, "cover_kernel")
     log(json.dumps({"times_ms": times}))
     return times
 
@@ -680,14 +691,13 @@ def cover_config(**kw):
     return SolverConfig(**{**base, **kw})
 
 
-def phase_k3(sizes, dev):
-    """K3 against its plain version on fanned-out 4,096-lane frontiers.
-
-    n-queens and pentomino grow from their one root through fused driver
-    rounds (steals double the live lanes each dispatch); sudoku-cover seeds
-    every lane with a HARD_9 clue root (cycled, one job each) and runs two
-    dispatches so that stacks fill.  Timing is at the enumeration path's
-    mode (count_mode on)."""
+def cover_frontiers(sizes, dev):
+    """(name, problem, (top, stack, has, base, count)) of phase 8: 4,096-lane
+    frontiers of the three cover instances.  n-queens and pentomino grow
+    from their one root through fused driver rounds (steals double the live
+    lanes each dispatch); sudoku-cover seeds every lane with a HARD_9 clue
+    root (cycled, one job each) and runs two dispatches so that stacks
+    fill.  Calls only what every slice of the port since PR 2 provides."""
     import numpy as np
     import torch
 
@@ -695,7 +705,7 @@ def phase_k3(sizes, dev):
     from distributed_sudoku_solver_tpu_torch.ops.frontier import init_frontier
 
     lanes, k = sizes["cover_lanes"], 8
-    err, rows = 0, {}
+    out = []
     for name, problem, roots in cover_instances():
         cfg = cover_config()
         steps = sizes["cover_fanout_steps"]
@@ -704,11 +714,24 @@ def phase_k3(sizes, dev):
             steps = 2 * k
         state = init_frontier(torch.from_numpy(roots).to(dev), cfg)
         state = k3.advance_cover_fused(state, steps, problem, cfg)
-        top, stack, has, base, count = (state.top, state.stack, state.has_top, state.base,
-                                        state.count)
-        log(f"[8] K3 {name} L={lanes} S={stack.shape[1]} D={top.shape[-1]}: after "
-            f"{int(state.steps)} steps {int(has.sum())} lanes live, mean stack "
-            f"{float(count.float().mean()):.1f}")
+        frontier = (state.top, state.stack, state.has_top, state.base, state.count)
+        log(f"[8] K3 {name} L={lanes} S={state.stack.shape[1]} D={state.top.shape[-1]}: "
+            f"after {int(state.steps)} steps {int(state.has_top.sum())} lanes live, mean "
+            f"stack {float(state.count.float().mean()):.1f}")
+        out.append((name, problem, frontier))
+    return out
+
+
+def phase_k3(frontiers, sizes, dev):
+    """K3 against its plain version on phase 8's frontiers, count_mode off
+    and on; timing is at the enumeration path's mode (count_mode on)."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover as k3
+
+    lanes, k = sizes["cover_lanes"], 8
+    err, rows = 0, {}
+    for name, problem, (top, stack, has, base, count) in frontiers:
         for count_mode in (False, True):
             kw = dict(max_sweeps=problem.max_sweeps, k_steps=k, tile=128,
                       count_mode=count_mode)
@@ -754,6 +777,30 @@ def phase_k3(sizes, dev):
             f"{sweeps_total * problem.n_primary}) live rounds {int(live.sum())}")
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
     return err, rows
+
+
+def phase_cover_breakdown(frontiers, sizes) -> dict:
+    """K3's counter build on phase 8's frontiers (k_steps=8, count_mode on):
+    each stage's share of the warps' clock64() cycles ("other": output
+    stores and loop control outside the stages), and the longest warp's
+    cycles against the mean warp's (the dispatch waits for the longest)."""
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover as k3
+
+    out = {}
+    for name, problem, (top, stack, has, base, count) in frontiers:
+        cycles = k3.cover_fused_rounds_stage_cycles(
+            top, stack, has, base, count, problem, reps=sizes["reps"],
+            max_sweeps=problem.max_sweeps, k_steps=8, count_mode=True)
+        longest = cycles.pop("longest warp")
+        total = cycles.pop("total")
+        cycles["other"] = total - sum(cycles.values())
+        shares = {k: round(100 * v / total, 2) for k, v in cycles.items()}
+        mean = total / (sizes["reps"] * top.shape[0])
+        out[name] = dict(shares, total=total, longest=longest, mean=mean)
+        log(f"[8] K3 stage breakdown {name} L={top.shape[0]} S={stack.shape[1]} k=8 count_mode "
+            f"(% of {total} warp cycles over {sizes['reps']} launches): {json.dumps(shares)}; "
+            f"longest warp {longest} cycles, mean warp {mean:.0f} ({longest / mean:.2f}x)")
+    return out
 
 
 def _check_cover_solution(name, problem, solution) -> None:
@@ -1185,7 +1232,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--breakdown", action="store_true",
-                    help="phases 1-3 and K2's stage breakdown only (no result line)")
+                    help="phases 1-3 and K2's and K3's stage breakdowns only (no result line)")
     ap.add_argument("--times", action="store_true",
                     help="phases 1 and 3 and the kernels' device times only (no result line); "
                          "runs against the checkout that holds this copy of the script")
@@ -1205,6 +1252,7 @@ def main(argv=None) -> int:
     build_s = phase_build()
     if args.breakdown:
         phase_breakdown(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
+        phase_cover_breakdown(cover_frontiers(SIZES, dev), SIZES)
         return 0
     corpus = phase_corpus(SIZES)
     k1 = phase_k1(corpus, SIZES, dev)
@@ -1213,7 +1261,10 @@ def main(argv=None) -> int:
     main_launches = phase_main(corpus, dev)
     phase_profile(corpus, dev)
     comp_launches = phase_composite(corpus, SIZES, dev)
-    k3_err, k3_rows = phase_k3(SIZES, dev)
+    frontiers = cover_frontiers(SIZES, dev)
+    k3_err, k3_rows = phase_k3(frontiers, SIZES, dev)
+    phase_cover_breakdown(frontiers, SIZES)
+    del frontiers
     cover_launches = phase_cover_main(dev)
     phase_cover_profile(dev)
     phase_cover_composite(SIZES, dev)

@@ -45,6 +45,53 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned NONE = 0xffffffffu;
 
+// Per-stage clock counters of the counter build (-DDSST_STAGE_CLOCKS, a
+// library of its own name; ops/cuda_build.py).  Each warp adds the
+// clock64() cycles it spends in each stage into registers; at its end lane
+// 0 adds them into dsst_cover_cycles (one atomic per stage) and raises
+// dsst_cover_cycles[N_STAGES] to its own total if that is larger (the
+// longest warp, which the dispatch waits for).  ST_TOTAL is the warp's
+// whole run, so "other" (output stores, loop control) is ST_TOTAL less the
+// others.  Without the define the struct is empty and every call compiles
+// away.
+enum Stage { ST_LOAD, ST_COUNT, ST_SEARCH, ST_LOWEST, ST_TAKE, ST_CLASSIFY, ST_PUSHPOP,
+             ST_TOTAL, N_STAGES };
+}  // namespace
+
+#ifdef DSST_STAGE_CLOCKS
+__device__ unsigned long long dsst_cover_cycles[N_STAGES + 1];
+
+namespace {
+struct StageClock {
+  long long acc[N_STAGES], start, t0;
+  __device__ StageClock() {
+    for (int i = 0; i < N_STAGES; ++i) acc[i] = 0;
+    start = t0 = clock64();
+  }
+  __device__ __forceinline__ void mark() { t0 = clock64(); }
+  __device__ __forceinline__ void stop(int s) {
+    const long long t = clock64();
+    acc[s] += t - t0;
+    t0 = t;
+  }
+  __device__ void flush(int lane) {
+    acc[ST_TOTAL] = clock64() - start;
+    if (lane == 0) {
+      for (int i = 0; i < N_STAGES; ++i)
+        atomicAdd(&dsst_cover_cycles[i], (unsigned long long)acc[i]);
+      atomicMax(&dsst_cover_cycles[N_STAGES], (unsigned long long)acc[ST_TOTAL]);
+    }
+  }
+};
+#else
+namespace {
+struct StageClock {
+  __device__ __forceinline__ void mark() {}
+  __device__ __forceinline__ void stop(int) {}
+  __device__ __forceinline__ void flush(int) {}
+};
+#endif
+
 struct Cover {
   const unsigned* cr;     // [C_full][pitch]: available-row masks of each column
   const unsigned* inc;    // [R][w_inc]: full columns of each row
@@ -59,7 +106,8 @@ struct Scan {
 };
 
 // Counts of every uncovered primary column, reduced over the warp.
-__device__ Scan scan(const Cover& k, const unsigned* av, const unsigned* cov, int lane) {
+__device__ Scan scan(const Cover& k, const unsigned* av, const unsigned* cov, int lane,
+                     StageClock& clk) {
   unsigned forced = NONE, branch = NONE;
   bool unc = false, contra = false;
   for (int c = lane; c < k.n_primary; c += 32) {
@@ -75,11 +123,13 @@ __device__ Scan scan(const Cover& k, const unsigned* av, const unsigned* cov, in
       branch = min(branch, cnt * (unsigned)k.n_primary + (unsigned)c);
     }
   }
+  clk.stop(ST_COUNT);
   Scan s;
   s.forced = __reduce_min_sync(FULL, forced);
   s.branch = __reduce_min_sync(FULL, branch);
   s.any_unc = __any_sync(FULL, unc);
   s.contra = __any_sync(FULL, contra);
+  clk.stop(ST_SEARCH);
   return s;
 }
 
@@ -161,6 +211,7 @@ __global__ void cover_kernel(const unsigned* __restrict__ top_in, unsigned* __re
 
   const long long l = (long long)blockIdx.x * warps + wib;
   if (l >= n_lanes) return;  // the whole warp leaves together
+  StageClock clk;
   unsigned* state = smem + wib * D;
   unsigned* av = state;
   unsigned* cov = state + w_rows;
@@ -175,6 +226,7 @@ __global__ void cover_kernel(const unsigned* __restrict__ top_in, unsigned* __re
   int count = count_in[l];
   bool solved_f = false, over_f = false;
   int nodes = 0, sols = 0, live = 0, sweeps = 0;
+  clk.stop(ST_LOAD);
 
   for (int step = 0; has && step < k_steps; ++step) {
     ++live;
@@ -182,15 +234,18 @@ __global__ void cover_kernel(const unsigned* __restrict__ top_in, unsigned* __re
     bool fresh = false;  // s describes the current state
     int sw = 0;
     while (sw < max_sweeps) {
-      s = scan(k, av, cov, lane);
+      s = scan(k, av, cov, lane, clk);
       ++sw;
       if (s.forced == NONE) {
         fresh = true;
         break;
       }
-      take_row(k, av, cov, lowest_row(k, av, s.forced, lane), lane);
+      const int r = lowest_row(k, av, s.forced, lane);
+      clk.stop(ST_LOWEST);
+      take_row(k, av, cov, r, lane);
+      clk.stop(ST_TAKE);
     }
-    if (!fresh) s = scan(k, av, cov, lane);
+    if (!fresh) s = scan(k, av, cov, lane, clk);
     sweeps += sw;
 
     const bool con = s.contra;
@@ -199,18 +254,22 @@ __global__ void cover_kernel(const unsigned* __restrict__ top_in, unsigned* __re
       for (int w = lane; w < D; w += 32) my_sol[w] = state[w];
       solved_f = true;
     }
+    clk.stop(ST_CLASSIFY);
     if (count_mode && slv) ++sols;
     const bool undecided = !slv && !con;
     const bool can_push = undecided && count < S;
     if (undecided) {
       const int r = lowest_row(k, av, s.branch % (unsigned)n_primary, lane);
+      clk.stop(ST_LOWEST);
       if (can_push) {
         unsigned* dst = my_stack + (size_t)((base + count) % S) * D;
         const int rw = r >> 5;
         const unsigned rbit = 1u << (r & 31);
         for (int w = lane; w < D; w += 32) dst[w] = w == rw ? (state[w] & ~rbit) : state[w];
       }
+      clk.stop(ST_PUSHPOP);
       take_row(k, av, cov, r, lane);
+      clk.stop(ST_TAKE);
       if (!can_push) over_f = true;
       ++nodes;
     }
@@ -221,6 +280,7 @@ __global__ void cover_kernel(const unsigned* __restrict__ top_in, unsigned* __re
       __syncwarp();
       for (int w = lane; w < D; w += 32) state[w] = row[w];
       __syncwarp();
+      clk.stop(ST_PUSHPOP);
     }
     has = !(resolved && !can_pop) && (count_mode || !slv);
     count += (can_push ? 1 : 0) - (can_pop ? 1 : 0);
@@ -241,6 +301,7 @@ __global__ void cover_kernel(const unsigned* __restrict__ top_in, unsigned* __re
     lane_out[6 * (long long)n_lanes + l] = live;
     lane_out[7 * (long long)n_lanes + l] = sweeps;
   }
+  clk.flush(lane);
 }
 
 }  // namespace
@@ -266,3 +327,15 @@ extern "C" int dsst_cover_rounds(const void* top_in, void* stack, const void* ha
   }
   return (int)cudaGetLastError();
 }
+
+#ifdef DSST_STAGE_CLOCKS
+// The counter build's cycles per stage and the longest warp's total
+// (N_STAGES + 1 words) into host memory, then zeroed.  Synchronous: call
+// after the timed launches have finished.
+extern "C" int dsst_stage_cycles_take(void* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, dsst_cover_cycles, sizeof(dsst_cover_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[N_STAGES + 1] = {};
+  return (int)cudaMemcpyToSymbol(dsst_cover_cycles, zero, sizeof(zero));
+}
+#endif

@@ -33,6 +33,7 @@ import ctypes
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.cover import ExactCoverCSP
@@ -120,19 +121,20 @@ def cover_fused_rounds_plain(
     )
 
 
-def _lib():
-    lib = cuda_build.load("cover")
+STAGES = ("state load", "count", "forced and MRV search", "lowest row", "take",
+          "classify and capture", "push and pop", "total")
+
+
+def _lib(variant: str = ""):
+    lib = cuda_build.load("cover", variant)
     fn = lib.dsst_cover_rounds
     fn.argtypes = [_P] * 11 + [_I] * 13 + [_P]
     fn.restype = _I
-    return fn
+    return lib
 
 
-def cover_fused_rounds_cuda(
-    top, stack, has_top, base, count, problem: ExactCoverCSP, max_sweeps: int = 64,
-    k_steps: int = 8, tile: int = 128, count_mode: bool = False,
-):
-    """Launch K3 on CUDA tensors (no host sync); same returns as the plain version."""
+def _launch(variant, top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
+            count_mode):
     _check_round_inputs(top, stack, has_top, base, count, problem)
     for name, v in (("top", top), ("stack", stack), ("has_top", has_top),
                     ("base", base), ("count", count)):
@@ -144,7 +146,7 @@ def cover_fused_rounds_cuda(
         raise ValueError("k_steps / max_sweeps out of int32 range")
     shape = launch_shape(problem)
     consts = problem._tensors(top.device)
-    fn = _lib()
+    fn = _lib(variant).dsst_cover_rounds
     lanes, s = stack.shape[:2]
     dev = top.device
     has_i = has_top.to(torch.int32).contiguous()
@@ -161,8 +163,41 @@ def cover_fused_rounds_cuda(
              consts["row_inc"].shape[1], problem.n_primary, problem.n_cols_full, max_sweeps,
              k_steps, int(count_mode), shape.warps, int(shape.stage), shape.smem_bytes, stream)
     cuda_build.check(err, "dsst_cover_rounds")
-    cover_fused_rounds_cuda.launches += 1
     return _kernel_outputs(top_out, stack, base_i, sol, lane_out, tile, words=problem.w_rows)
+
+
+def cover_fused_rounds_cuda(
+    top, stack, has_top, base, count, problem: ExactCoverCSP, max_sweeps: int = 64,
+    k_steps: int = 8, tile: int = 128, count_mode: bool = False,
+):
+    """Launch K3 on CUDA tensors (no host sync); same returns as the plain version."""
+    out = _launch("", top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
+                  count_mode)
+    cover_fused_rounds_cuda.launches += 1
+    return out
+
+
+def cover_fused_rounds_stage_cycles(top, stack, has_top, base, count, problem: ExactCoverCSP,
+                                    reps: int = 1, **kw) -> dict[str, int]:
+    """K3's counter build (``-DDSST_STAGE_CLOCKS``) launched ``reps`` times
+    on the same inputs (``stack`` is cloned for each, so every launch does
+    the same work); returns the ``clock64()`` cycles that all warps spent
+    in each stage of :data:`STAGES`, summed over warps and launches, and
+    ``"longest warp"``, the largest total of one warp in one launch.
+    Synchronizes.  Not a main-path launch: it does not count in
+    ``cover_fused_rounds_cuda.launches``."""
+    take = _lib("clocks").dsst_stage_cycles_take
+    take.argtypes = [_P]
+    take.restype = _I
+    cycles = np.zeros(len(STAGES) + 1, dtype=np.uint64)
+    torch.cuda.synchronize(top.device)
+    cuda_build.check(take(cycles.ctypes.data), "dsst_stage_cycles_take")  # zero it
+    for _ in range(reps):
+        _launch("clocks", top, stack.clone(), has_top, base, count, problem, **{
+            "max_sweeps": 64, "k_steps": 8, "tile": 128, "count_mode": False, **kw})
+    torch.cuda.synchronize(top.device)
+    cuda_build.check(take(cycles.ctypes.data), "dsst_stage_cycles_take")
+    return {name: int(c) for name, c in zip((*STAGES, "longest warp"), cycles)}
 
 
 cover_fused_rounds_cuda.launches = 0
