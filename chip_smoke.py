@@ -14,9 +14,9 @@ Phases, each of which must pass (nothing is caught and skipped):
 2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
    (one ``nvcc`` per library, started together: K1, K2, K3 and K2's and
    K3's counter builds) and print, per kernel instantiation (K1 and K2 are
-   templates on the box shape), ptxas's registers, spills and stack frame
-   and the warps an SM holds at that register count; fails if K1 or K2
-   spills;
+   templates on the box shape, K3 on the instance's row and covered
+   words), ptxas's registers, spills and stack frame and the warps an SM
+   holds at that register count; fails if any instantiation spills;
 3. generate the corpus: 65,533 seeded 24-clue 9x9 boards carved with
    ``make_puzzle(unique=False)`` plus ``HARD_9`` (every carved board keeps
    its parent solution, so no board may come back unsat);
@@ -149,46 +149,89 @@ def _cols_per_row(problem) -> float:
 
 
 def cover_dispatch_work(problem, top, stack, has_top, base, count, **kw) -> dict:
-    """What one cover dispatch's data needs, from a plain run of it: every
-    count pass of every live lane (each sweep, and the re-scan after a chain
-    that the cap cut) with the uncovered primary columns it must count, and
-    the rows the sweeps took.  Covered columns need no count and are not
-    charged."""
+    """What one cover dispatch's data needs, from a plain run of it.
+
+    ``columns``: the uncovered primary columns of every search pass of every
+    live lane (each sweep, and the re-scan after a chain that the cap cut);
+    ``loaded``: those of the states whose counts must be made from scratch,
+    i.e. each live lane's first round and each round after a pop (every
+    other round starts from the state the lane's own take left); ``takes``:
+    the rows the sweeps took; ``decrements``: the primary columns of the
+    rows that each take (forced, or a branch's guess) killed.  Covered
+    columns need no count and are not charged."""
+    import torch
+
     from distributed_sudoku_solver_tpu_torch.ops.cuda_step import _plain_rounds
 
     max_sweeps = kw.pop("max_sweeps")
-    work = {"sweeps": 0, "columns": 0, "takes": 0}
+    work = {"sweeps": 0, "columns": 0, "takes": 0, "loaded": 0, "decrements": 0}
+    rl = torch.tensor(problem.row_list(), device=top.device)
+    primary = ((rl >= 0) & (rl < problem.n_primary)).sum(1).to(torch.int64)  # per row
+    shifts = torch.arange(32, device=top.device, dtype=torch.int32)
+    undecided = {}  # the previous round's undecided lanes
+
+    def killed_primary(before, after):
+        gone = (before & ~after)[:, :, None] >> shifts & 1
+        return (gone.flatten(1)[:, :problem.n_rows].to(torch.int64) * primary).sum(1)
 
     def propagate(states):
         # Dead lanes enter as zeros; a live state never is (it has rows
         # available or columns covered), and the sweep check below holds it.
         active = (states != 0).flatten(1).any(1)
         avail, covered = problem._split(states)
+        fresh = active & ~undecided.get("lanes", torch.zeros_like(active))
+        work["loaded"] += int((problem._counts(avail, covered)[1] & fresh[:, None]).sum())
         for _ in range(max_sweeps):
             work["sweeps"] += int(active.sum())
             work["columns"] += int((problem._counts(avail, covered)[1] & active[:, None]).sum())
-            avail, covered, took = problem._forced_take(avail, covered)
+            after, covered, took = problem._forced_take(avail, covered)
             active = active & took
             work["takes"] += int(active.sum())
+            work["decrements"] += int(killed_primary(avail, after)[active].sum())
+            avail = after
             if not bool(active.any()):
                 break
         work["columns"] += int((problem._counts(avail, covered)[1] & active[:, None]).sum())
         return problem.propagate_per_lane(states, max_sweeps)
 
-    out = _plain_rounds(top, stack, has_top, base, count, propagate, problem.status,
-                        problem.branch, words=problem.w_rows, **kw)
+    def status(tops):
+        slv, con = problem.status(tops)
+        undecided["lanes"] = (tops != 0).flatten(1).any(1) & ~slv & ~con
+        return slv, con
+
+    def branch(tops):
+        guess, rest = problem.branch(tops)
+        dec = killed_primary(problem._split(tops)[0], problem._split(guess)[0])
+        work["decrements"] += int(dec[undecided["lanes"]].sum())
+        return guess, rest
+
+    out = _plain_rounds(top, stack, has_top, base, count, propagate, status, branch,
+                        words=problem.w_rows, **kw)
     if work["sweeps"] != int(out[11]):
         raise AssertionError(f"the work count saw {work['sweeps']} sweeps, the round {int(out[11])}")
     return work
 
 
 def cover_dispatch_ops(problem, work: dict, nodes: int, copies: int) -> float:
-    """Integer operations of one cover dispatch on its data: per uncovered
-    column of a count pass, AND, popcount and add per row word and 4 for the
-    keys; per row taken (forced, or a branch's guess), the lowest row (2 per
-    row word), the take (one OR per row word per column of the row, 2 per
-    row word to clear and keep, 1 per covered word); 1 per word of each
-    state the stack pushes or pops."""
+    """Integer operations of one cover dispatch on its data, with the
+    column counts kept from pass to pass: per uncovered column of a loaded
+    state, AND, popcount and add per row word; per uncovered column of a
+    search pass, one compare (the forced and MRV search); one decrement per
+    primary column of a killed row; per row taken (forced, or a branch's
+    guess), the lowest row (2 per row word), the take (one OR per row word
+    per column of the row, 2 per row word to clear and keep, 1 per covered
+    word); 1 per word of each state the stack pushes or pops."""
+    wr, wc = problem.w_rows, problem.w_cols
+    take = 2 * wr + (_cols_per_row(problem) + 2) * wr + wc
+    return (work["loaded"] * 3 * wr + work["columns"] + work["decrements"]
+            + (work["takes"] + nodes) * take + copies * (wr + wc))
+
+
+def cover_dispatch_ops_recount(problem, work: dict, nodes: int, copies: int) -> float:
+    """The bound of K3's first design, which counted every uncovered column
+    at every search pass (AND, popcount and add per row word, 4 for the
+    keys), the takes and copies as above; printed beside the bound of
+    :func:`cover_dispatch_ops` for comparison."""
     wr, wc = problem.w_rows, problem.w_cols
     take = 2 * wr + (_cols_per_row(problem) + 2) * wr + wc
     return (work["columns"] * (3 * wr + 4) + (work["takes"] + nodes) * take
@@ -225,23 +268,25 @@ def event_ms(fn, reps: int, setup=None) -> float:
 def device_ms(fn, reps: int, setup, match: str) -> float:
     """Mean device time per call of the kernels whose name contains
     ``match``, over ``reps`` calls of ``fn(setup())`` under torch.profiler
-    after one warm-up; ``setup`` runs before the profiled region.  For a
-    kernel shorter than its wrapper's host work, where CUDA events around
-    the wrapper would time the host."""
+    after one warm-up; ``setup`` runs before the profiled region (profiled
+    again, up to three windows, if one records no event of the kernel).
+    For a kernel shorter than its wrapper's host work, where CUDA events
+    around the wrapper would time the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(setup())
-    args = [setup() for _ in range(reps)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for a in args:
-            fn(a)
+    for _ in range(3):  # a profiled window now and then records no kernel event
+        args = [setup() for _ in range(reps)]
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time of {match!r}")
-    return us / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for a in args:
+                fn(a)
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
+        if us > 0:
+            return us / reps / 1e3
+    raise AssertionError(f"the profiler saw no device time of {match!r} in three windows")
 
 
 def max_abs_err(a, b) -> int:
@@ -280,8 +325,8 @@ def phase_device() -> dict:
 def phase_build() -> float:
     """Build every library (one nvcc each, all at once) and print ptxas's
     registers, spills and stack frame per kernel instantiation, with the
-    warps an SM holds at that register count (4-warp blocks, 64 warps at
-    most).  K1 and K2 must not spill in any instantiation."""
+    warps an SM holds at that register count (4-warp blocks for K1 and K2,
+    8 for K3; 64 warps at most).  No instantiation may spill."""
     from distributed_sudoku_solver_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -292,17 +337,18 @@ def phase_build() -> float:
         f"total {build_s:.2f} s")
     spills = []
     for name in cuda_build.SOURCES:
+        block = 256 if name == "cover" else 128  # threads per block
         for row in cuda_build.ptxas_kernels(cuda_build.ptxas_report(name)):
-            geo = "" if row["geometry"] is None else "<%d, %d>" % row["geometry"]
+            geo = "" if row["geometry"] is None else f"<{', '.join(map(str, row['geometry']))}>"
             regs = row["registers"]
-            warps = min(64, 65536 // (128 * (-(-regs // 8) * 8)) * 4)
+            warps = min(64, 65536 // (block * (-(-regs // 8) * 8)) * (block // 32))
             log(f"    {name} {row['kernel']}{geo}: {regs} registers, spill stores "
                 f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, stack frame "
                 f"{row['stack_frame']} B; {warps} warps/SM by registers")
-            if name != "cover" and (row["spill_stores"] or row["spill_loads"]):
+            if row["spill_stores"] or row["spill_loads"]:
                 spills.append(f"{row['kernel']}{geo}")
     if spills:
-        raise AssertionError(f"K1/K2 instantiations spill: {spills}")
+        raise AssertionError(f"kernel instantiations spill: {spills}")
     return build_s
 
 
@@ -697,7 +743,8 @@ def cover_frontiers(sizes, dev):
     from their one root through fused driver rounds (steals double the live
     lanes each dispatch); sudoku-cover seeds every lane with a HARD_9 clue
     root (cycled, one job each) and runs two dispatches so that stacks
-    fill.  Calls only what every slice of the port since PR 2 provides."""
+    fill.  Calls only what every version of the cover port provides, so a
+    copy of this script builds the same frontiers from an older checkout."""
     import numpy as np
     import torch
 
@@ -764,17 +811,20 @@ def phase_k3(frontiers, sizes, dev):
         pushes = int(nodes.sum())
         pops = int((count + nodes - out[4]).sum())
         d = top.shape[-1]
-        consts = problem.n_cols_full * problem.w_rows + problem.n_rows * (
-            problem.incidence.shape[1] + problem.w_cols)
+        consts = problem.n_cols_full * problem.w_rows + problem.row_list().size
         n_bytes = (3 * lanes * d + (pushes + pops) * d + consts) * 4 + 11 * lanes * 4
         work = cover_dispatch_work(problem, top, stack.clone(), has, base, count, **kw)
         n_ops = cover_dispatch_ops(problem, work, pushes, pushes + pops)
         bms, by = bound_ms(n_bytes, n_ops)
+        old_bms, _ = bound_ms(n_bytes, cover_dispatch_ops_recount(problem, work, pushes,
+                                                                  pushes + pops))
         log(f"[8] K3 timing {name} L={lanes} count_mode: {ms:.4f} ms (kernel, profiler; "
             f"wrapper {wrapper_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} ms, "
-            f"bound {bms:.6f} ms ({by}); pushes {pushes} pops {pops} sweeps {sweeps_total} "
-            f"(forced takes {work['takes']}, uncovered columns counted {work['columns']} of "
-            f"{sweeps_total * problem.n_primary}) live rounds {int(live.sum())}")
+            f"bound {bms:.6f} ms ({by}; with a full count at every pass {old_bms:.6f} ms); "
+            f"pushes {pushes} pops {pops} sweeps {sweeps_total} (forced takes "
+            f"{work['takes']}, uncovered columns searched {work['columns']} of "
+            f"{sweeps_total * problem.n_primary}, counted from scratch {work['loaded']}, "
+            f"decrements {work['decrements']}) live rounds {int(live.sum())}")
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
     return err, rows
 

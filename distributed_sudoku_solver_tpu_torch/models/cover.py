@@ -120,8 +120,9 @@ class ExactCoverCSP:
         """int32 torch copies of the instance arrays on ``device`` (made once).
 
         With the full incidence they include the round kernel's constants:
-        ``col_rows_full`` [C_full, W_r] (rows of every column, primary
-        first) and ``row_inc`` [R, ceil(C_full/32)] (full columns of each row)."""
+        ``col_rows_full`` [C_full + 1, W_r] (rows of every column, primary
+        first, then a zero row for padding entries) and ``row_list``
+        (:meth:`row_list`, padded with rows of -1 to 32 * W_r rows)."""
         key = str(device)
         t = self._on_device.get(key)
         if t is None:
@@ -140,10 +141,33 @@ class ExactCoverCSP:
             }
             if self.incidence is not None:
                 inc = _unpack_bits(self.incidence, self.n_cols_full)
-                t["col_rows_full"] = dev(_pack_bits(inc.T))
-                t["row_inc"] = dev(self.incidence)
+                masks = _pack_bits(inc.T)
+                t["col_rows_full"] = dev(np.concatenate([masks, np.zeros_like(masks[:1])]))
+                rl = self.row_list()
+                pad = np.full((32 * self.w_rows - rl.shape[0], rl.shape[1]), -1, np.int32)
+                t["row_list"] = torch.from_numpy(np.concatenate([rl, pad])).to(device)
             self._on_device[key] = t
         return t
+
+    def row_list(self) -> np.ndarray:
+        """Each row's full columns (primary and secondary) as a compact
+        list: int32 [R, K], ascending (so the primary columns come first),
+        padded with -1 to K, the most columns of a row rounded up to an
+        even number (the round kernel stages them as 16-bit pairs).  Made
+        once per instance."""
+        cached = getattr(self, "_row_list", None)
+        if cached is not None:
+            return cached
+        inc = _unpack_bits(self.incidence, self.n_cols_full)
+        per_row = inc.sum(1)
+        k = max(2, -(-int(per_row.max()) // 2) * 2)
+        out = np.full((self.n_rows, k), -1, dtype=np.int32)
+        rows, cols = np.nonzero(inc)  # row-major: ascending columns per row
+        start = np.concatenate([[0], np.cumsum(per_row)[:-1]])
+        out[rows, np.arange(rows.size) - start[rows]] = cols
+        out.setflags(write=False)
+        object.__setattr__(self, "_row_list", out)
+        return out
 
     # -- state packing -------------------------------------------------------
     def _split(self, states: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -8,14 +8,16 @@ library.  :func:`build` starts one ``nvcc`` per target, all at once, and
 keeps ptxas's register / shared-memory / spill report beside each library.
 A target is a source and a variant: ``""`` is the library the package
 runs; ``"clocks"`` compiles the same source with ``-DDSST_STAGE_CLOCKS``
-(per-stage ``clock64()`` counters, ``csrc/fixpoint.cuh``) into a library of
-its own name, which only the stage breakdown loads.
+(per-stage ``clock64()`` counters, ``csrc/fixpoint.cuh`` for K1 and K2,
+``csrc/cover.cu`` for K3) into a library of its own name, which only the
+stage breakdowns load.
 Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -82,7 +84,8 @@ def ptxas_report(name: str, variant: str = "") -> str:
 
 def build(targets=TARGETS) -> dict[str, float]:
     """Compile every ``(source, variant)`` target not built yet, all nvcc
-    processes started together; returns seconds per library built."""
+    processes started together; returns each library's seconds from the
+    start to its own nvcc's exit."""
     todo = [t for t in targets if not lib_path(*t).exists()]
     if not todo:
         return {}
@@ -92,16 +95,23 @@ def build(targets=TARGETS) -> dict[str, float]:
     t0 = time.perf_counter()
     for name, variant in todo:
         tmp = lib_path(name, variant).with_suffix(f".tmp{os.getpid()}.so")
+        log = tmp.with_suffix(".log")
         cmd = [nvcc, *_flags(variant), "-I", str(CSRC_DIR), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        procs[name, variant] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
+        with open(log, "w") as out:
+            procs[name, variant] = (tmp, log, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT))
+    # Each library's own seconds: poll until every nvcc has exited.
     seconds: dict[str, float] = {}
+    while len(seconds) < len(procs):
+        for (name, variant), (_, _, proc) in procs.items():
+            if lib_name(name, variant) not in seconds and proc.poll() is not None:
+                seconds[lib_name(name, variant)] = time.perf_counter() - t0
+        time.sleep(0.05)
     errors = []
-    for (name, variant), (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        seconds[lib_name(name, variant)] = time.perf_counter() - t0
+    for (name, variant), (tmp, log, proc) in procs.items():
+        out = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu {variant} failed ({proc.returncode}):\n{out}")
             continue
@@ -139,9 +149,33 @@ def instantiation(box_h: int, box_w: int) -> tuple[int, int]:
     return (box_h, box_w) if (box_h, box_w) in compiled_geometries() else (0, 0)
 
 
+@functools.lru_cache(maxsize=None)
+def compiled_cover_shapes() -> tuple[tuple[int, int, int], ...]:
+    """The ``(RW, CW, ST)`` shapes with a compile-time instantiation of K3:
+    ``DSST_FOR_EACH_COVER_SHAPE`` in ``csrc/cover.cu``."""
+    text = (CSRC_DIR / "cover.cu").read_text()
+    found = re.search(r"#define DSST_FOR_EACH_COVER_SHAPE\(X\)((?:[\s\\]*X\(\d+, *\d+, *\d+\))+)",
+                      text)
+    if found is None:
+        raise RuntimeError("DSST_FOR_EACH_COVER_SHAPE not found in csrc/cover.cu")
+    return tuple((int(a), int(b), int(c))
+                 for a, b, c in re.findall(r"X\((\d+), *(\d+), *(\d+)\)", found.group(1)))
+
+
+def cover_instantiation(w_rows: int, w_cols: int, stage: bool) -> tuple[int, int, int]:
+    """The template arguments ``cover_kernel<RW, CW, ST>`` that K3 runs for
+    an instance of ``w_rows`` row words and ``w_cols`` covered words, its
+    constants staged in shared memory or not (and its counts in shared
+    memory): ``(ceil(w_rows / 32), w_cols, stage)`` when compiled, else
+    ``(0, 0, -1)``, the instantiation with run-time trip counts."""
+    shape = (-(-w_rows // 32), w_cols, int(stage))
+    return shape if shape in compiled_cover_shapes() else (0, 0, -1)
+
+
 def ptxas_kernels(report: str) -> list[dict]:
     """Per kernel instantiation in a ptxas ``-v`` report: its name, its
-    ``Geo<BH, BW>`` template arguments (None for a kernel without them),
+    integer template arguments (``Geo<BH, BW>`` of K1 and K2, ``<RW, CW,
+    ST>`` of K3; None for a kernel without them),
     registers, spill stores and loads and stack frame, in bytes."""
     rows: list[dict] = []
     for line in report.splitlines():
@@ -149,9 +183,9 @@ def ptxas_kernels(report: str) -> list[dict]:
         if entry:
             mangled = entry.group(1)
             name = re.search(r"\d+([a-z_]+_kernel)", mangled)
-            geo = re.search(r"ILi(\d+)ELi(\d+)E", mangled)
+            args = [int(a.replace("n", "-")) for a in re.findall(r"Li(n?\d+)E", mangled)]
             rows.append({"kernel": name.group(1) if name else mangled,
-                         "geometry": (int(geo.group(1)), int(geo.group(2))) if geo else None})
+                         "geometry": tuple(args) if args else None})
             continue
         if not rows:
             continue

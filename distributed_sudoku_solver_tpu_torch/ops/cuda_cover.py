@@ -50,46 +50,83 @@ from distributed_sudoku_solver_tpu_torch.ops.frontier import FUSED_STEPS_LINKED,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# Launch rule of K3, from the H100's shared memory: a block holds one
-# lane's packed state per warp, and the column masks when they fit.
+# Launch rule of K3, from the H100's shared memory.  A block holds per warp
+# (lane) W_r exchange words and, when they fit, the column masks and the
+# row lists as 16-bit pairs.  A compiled shape keeps a lane's row words and
+# column counts in registers; the run-time shape keeps them in a private
+# block of W_r + 32 W_c words per lane, in shared memory when it fits, else
+# in device memory ([L, W_r + 32 W_c] int32 scratch, a few 1/S of the
+# stack's bytes).
 SMEM_BYTES = 232_448  # the most dynamic shared memory one block may use
 MAX_WARPS = 8  # warps (lanes) per block
 STAGE_BYTES = 100 * 1024  # staged blocks stay small enough for two per SM
-KEY_LIMIT = 2**31  # the kernel's column keys cnt * n_primary + col are int32
+# The kernel's column keys (rank << cb) | col, cb the bits of a column
+# index and rank at most n_rows, are uint32 below 0xFFFFFFFF (no key).
+KEY_LIMIT = 2**32
 
 
 class LaunchShape(NamedTuple):
     warps: int  # lanes per block
-    stage: bool  # column masks staged in shared memory
+    stage: bool  # column masks and row lists staged in shared memory
     smem_bytes: int
+    shared_private: bool  # a lane's row words and counts on chip (else in device memory)
+    instantiation: tuple[int, int, int]  # cover_kernel<RW, CW, ST>; (0, 0, -1): run-time
+
+
+def column_bits(n_primary: int) -> int:
+    """cb: the bits of a primary column index (0 for a single column)."""
+    return (n_primary - 1).bit_length()
+
+
+def private_words(problem: ExactCoverCSP) -> int:
+    """The run-time shape's private block per lane: row words, 32 W_c counts."""
+    return problem.w_rows + 32 * problem.w_cols
+
+
+def stage_bytes(problem: ExactCoverCSP) -> int:
+    """The staged constants: column masks and the zero mask at an odd pitch,
+    then 32 * W_r row lists of K 16-bit entries."""
+    k = problem.row_list().shape[1]
+    return 4 * ((problem.n_cols_full + 1) * (problem.w_rows | 1) + 32 * problem.w_rows * k // 2)
 
 
 def launch_shape(problem: ExactCoverCSP) -> LaunchShape:
-    """K3's block shape for ``problem``; raises for an instance it cannot
-    take (no full incidence, keys beyond int32, a lane state larger than a
-    block's shared memory)."""
+    """K3's block shape and instantiation for ``problem``; raises for an
+    instance it cannot take (no full incidence, keys beyond uint32, a lane's
+    row words larger than a block's shared memory)."""
     if problem.incidence is None:
         raise ValueError(
             f"the cover kernel needs the full incidence matrix of {problem.name!r}; "
             "rebuild the instance with models.cover.build_cover"
         )
-    key_ceiling = problem.n_rows * problem.n_primary + problem.n_primary
+    key_ceiling = (problem.n_rows + 1) << column_bits(problem.n_primary)
     if key_ceiling >= KEY_LIMIT:
         raise ValueError(
             f"the cover kernel cannot serve {problem.name!r}: its column keys reach "
-            f"{key_ceiling} >= 2**31; use step_impl='xla'"
+            f"{key_ceiling} >= 2**32; use step_impl='xla'"
         )
-    lane_bytes = 4 * (problem.w_rows + problem.w_cols)
-    if lane_bytes > SMEM_BYTES:
+    const_bytes = stage_bytes(problem)
+    stageable = problem.n_cols_full < 0xFFFF  # 0xFFFF pads the 16-bit lists
+
+    def shape(lane_bytes, shared, inst):
+        warps = min(MAX_WARPS, SMEM_BYTES // lane_bytes)
+        stage = stageable and warps * lane_bytes + const_bytes <= STAGE_BYTES
+        return LaunchShape(warps, stage, warps * lane_bytes + (const_bytes if stage else 0),
+                           shared, inst)
+
+    exchange = 4 * problem.w_rows
+    if exchange > SMEM_BYTES:
         raise ValueError(
-            f"the cover kernel cannot serve {problem.name!r}: one lane's state is "
-            f"{lane_bytes} bytes, over the {SMEM_BYTES} bytes of a block's shared "
-            "memory; use step_impl='xla'"
+            f"the cover kernel cannot serve {problem.name!r}: one lane's row words are "
+            f"{exchange} bytes, over the {SMEM_BYTES} bytes of a block's shared memory; "
+            "use step_impl='xla'"
         )
-    warps = min(MAX_WARPS, SMEM_BYTES // lane_bytes)
-    const_bytes = 4 * problem.n_cols_full * (problem.w_rows | 1)
-    stage = warps * lane_bytes + const_bytes <= STAGE_BYTES
-    return LaunchShape(warps, stage, warps * lane_bytes + (const_bytes if stage else 0))
+    compiled = shape(exchange, True, None)
+    inst = cuda_build.cover_instantiation(problem.w_rows, problem.w_cols, compiled.stage)
+    if inst != (0, 0, -1):
+        return compiled._replace(instantiation=inst)
+    shared = exchange + 4 * private_words(problem) <= SMEM_BYTES
+    return shape(exchange + (4 * private_words(problem) if shared else 0), shared, inst)
 
 
 def _check_round_inputs(top, stack, has_top, base, count, problem: ExactCoverCSP):
@@ -140,13 +177,21 @@ def _launch(variant, top, stack, has_top, base, count, problem, max_sweeps, k_st
                     ("base", base), ("count", count)):
         if v.device.type != "cuda":
             raise ValueError(f"cover_fused_rounds_cuda needs CUDA tensors; {name} is on {v.device}")
+    return _call(_lib(variant).dsst_cover_rounds, torch.cuda.current_stream(top.device).cuda_stream,
+                 top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
+                 count_mode)
+
+
+def _call(fn, stream, top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
+          count_mode):
+    """Marshal the arguments of ``dsst_cover_rounds`` (csrc/cover.cu) from
+    tensors on one device, call ``fn`` with them and build the 13-tuple."""
     if not (top.is_contiguous() and stack.is_contiguous()):
         raise ValueError("cover_fused_rounds_cuda needs contiguous top and stack")
     if not (0 <= k_steps < 2**31 and 0 <= max_sweeps < 2**31):
         raise ValueError("k_steps / max_sweeps out of int32 range")
     shape = launch_shape(problem)
     consts = problem._tensors(top.device)
-    fn = _lib(variant).dsst_cover_rounds
     lanes, s = stack.shape[:2]
     dev = top.device
     has_i = has_top.to(torch.int32).contiguous()
@@ -155,13 +200,16 @@ def _launch(variant, top, stack, has_top, base, count, problem, max_sweeps, k_st
     top_out = torch.empty_like(top)
     sol = torch.empty_like(top)
     lane_out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = None if shape.shared_private else torch.empty(
+        (lanes, private_words(problem)), dtype=torch.int32, device=dev)
+    row_list = consts["row_list"]
     err = fn(top.data_ptr(), stack.data_ptr(), has_i.data_ptr(), base_i.data_ptr(),
              count_i.data_ptr(), top_out.data_ptr(), sol.data_ptr(), lane_out.data_ptr(),
-             consts["col_rows_full"].data_ptr(), consts["row_inc"].data_ptr(),
-             consts["row_cols"].data_ptr(), lanes, s, problem.w_rows, problem.w_cols,
-             consts["row_inc"].shape[1], problem.n_primary, problem.n_cols_full, max_sweeps,
-             k_steps, int(count_mode), shape.warps, int(shape.stage), shape.smem_bytes, stream)
+             consts["col_rows_full"].data_ptr(), row_list.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), lanes, s, problem.w_rows,
+             problem.w_cols, problem.n_primary, problem.n_cols_full, row_list.shape[1],
+             max_sweeps, k_steps, int(count_mode), shape.warps, int(shape.stage),
+             shape.smem_bytes, stream)
     cuda_build.check(err, "dsst_cover_rounds")
     return _kernel_outputs(top_out, stack, base_i, sol, lane_out, tile, words=problem.w_rows)
 

@@ -11,6 +11,7 @@
 """
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -20,7 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_sudoku_solver_tpu_torch.models.cover import sudoku_clue_rows, sudoku_cover
+from distributed_sudoku_solver_tpu_torch.models.cover import (
+    build_cover,
+    sudoku_clue_rows,
+    sudoku_cover,
+)
 from distributed_sudoku_solver_tpu_torch.models.geometry import (
     SUDOKU_4,
     SUDOKU_6,
@@ -209,22 +214,72 @@ def _cover_frontier(problem, roots, lanes, slots, device, steps):
                                    state.count)]
 
 
+def wide_cover(segments: int = 60, width: int = 1000):
+    """60,000 primary columns: a lane's counts do not fit beside its state
+    in shared memory, so they live in device memory (run-time shape).  Each
+    segment is covered by one of two whole-segment rows or by its four
+    quarters; taking one quarter forces the other three, one per sweep."""
+    rows = []
+    for s in range(segments):
+        base = s * width
+        for lo, hi in [(0, 4)] * 2 + [(q, q + 1) for q in range(4)]:
+            row = np.zeros(segments * width, dtype=bool)
+            row[base + lo * width // 4:base + hi * width // 4] = True
+            rows.append(row)
+    return build_cover("wide", np.stack(rows), segments * width)
+
+
+def _clue_roots(problem, geom, count, n_clues):
+    return np.stack([problem.state_with_rows_taken(sudoku_clue_rows(
+        make_puzzle(geom, seed, n_clues=n_clues, unique=False))) for seed in range(count)])
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_case(name):
+    """(problem, CPU frontier) of a K3 card test: every compile-time
+    instantiation (RW, CW) of csrc/cover.cu and the run-time one."""
+    if name == "nqueens4":  # (1, 1), W_r 1: a queen in each cell of row 0, unexpanded
+        problem = nqueens_cover(4)
+        roots = np.stack([problem.state_with_rows_taken([c]) for c in range(4)])
+        lanes, steps = 256, 0
+    elif name.startswith("nqueens"):  # (1, 1); secondary columns (the diagonals)
+        problem = nqueens_cover(int(name[len("nqueens"):]))
+        roots, lanes, steps = problem.initial_state()[None], 256, 40
+    elif name.startswith("pentomino"):  # (2, 3) and (3, 3)
+        h, w = map(int, name[len("pentomino"):].split("x"))
+        problem = pentomino_cover(h, w)
+        roots, lanes, steps = problem.initial_state()[None], 256, 40
+    elif name == "sudoku-cover9x9":  # (1, 11)
+        problem = sudoku_cover(SUDOKU_9)
+        roots = np.stack([problem.state_with_rows_taken(sudoku_clue_rows(h)) for h in HARD_9])
+        lanes, steps = 256, 12
+    elif name == "sudoku-cover4x4":  # (1, 2)
+        problem = sudoku_cover(SUDOKU_4)
+        roots, lanes, steps = _clue_roots(problem, SUDOKU_4, 64, 4), 256, 4
+    elif name == "sudoku-cover6x6":  # (1, 5): the run-time shape
+        problem = sudoku_cover(SUDOKU_6)
+        roots, lanes, steps = _clue_roots(problem, SUDOKU_6, 64, 8), 256, 6
+    elif name == "sudoku-cover16x16":  # (4, 32), column masks not staged
+        problem = sudoku_cover(SUDOKU_16)
+        roots, lanes, steps = _clue_roots(problem, SUDOKU_16, 8, 100), 32, 4
+    else:  # the run-time shape with its counts in device memory
+        problem = wide_cover()
+        roots, lanes, steps = problem.initial_state()[None], 32, 12
+    return problem, _cover_frontier(problem, roots, lanes, 16, "cpu", steps)
+
+
+K3_CASES = ["nqueens4", "nqueens8", "nqueens10", "nqueens14", "pentomino3x20", "pentomino6x10",
+            "sudoku-cover4x4", "sudoku-cover6x6", "sudoku-cover9x9", "sudoku-cover16x16", "wide"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_sweeps", [64, 1, 2])
 @pytest.mark.parametrize("count_mode", [False, True])
-@pytest.mark.parametrize("name", ["nqueens10", "pentomino3x20", "sudoku-cover9x9"])
+@pytest.mark.parametrize("name", K3_CASES)
 def test_k3_kernel_matches_plain(cuda_device, name, count_mode, max_sweeps):
-    if name == "nqueens10":
-        problem = nqueens_cover(10)
-        roots, steps = problem.initial_state()[None], 40
-    elif name == "pentomino3x20":
-        problem = pentomino_cover(3, 20)
-        roots, steps = problem.initial_state()[None], 40
-    else:
-        problem = sudoku_cover(SUDOKU_9)
-        roots = np.stack([problem.state_with_rows_taken(sudoku_clue_rows(h)) for h in HARD_9])
-        steps = 12
-    top, stack, has, base, count = _cover_frontier(problem, roots, 256, 16, cuda_device, steps)
+    problem, frontier = _k3_case(name)
+    top, stack, has, base, count = [t.to(cuda_device) for t in frontier]
+    assert bool(has.any())
     if max_sweeps < 64:
         # Some live lane's forced chain is cut at the cap in the first round,
         # so the re-scan after the cap and a branch on a cnt == 1 column run.
@@ -237,6 +292,24 @@ def test_k3_kernel_matches_plain(cuda_device, name, count_mode, max_sweeps):
     want = cuda_cover.cover_fused_rounds_plain(top, stack.clone(), has, base, count, problem,
                                                **kw)
     assert cuda_cover.cover_fused_rounds_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count_mode", [False, True])
+@pytest.mark.parametrize("name", ["pentomino6x10", "sudoku-cover6x6"])
+def test_k3_kernel_overflow_matches_plain(cuda_device, name, count_mode):
+    # A two-slot stack: lanes branch from their top with no room to push.
+    problem, frontier = _k3_case(name)
+    top, _, has, _, _ = [t.to(cuda_device) for t in frontier]
+    lanes = top.shape[0]
+    stack = torch.zeros((lanes, 2, *top.shape[1:]), dtype=torch.int32, device=cuda_device)
+    zero = torch.zeros(lanes, dtype=torch.int32, device=cuda_device)
+    kw = dict(k_steps=8, count_mode=count_mode, max_sweeps=64)
+    got = cuda_cover.cover_fused_rounds(top, stack.clone(), has, zero, zero, problem, **kw)
+    want = cuda_cover.cover_fused_rounds_plain(top, stack.clone(), has, zero, zero, problem, **kw)
+    assert bool(want[7].any())
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
