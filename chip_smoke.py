@@ -6,17 +6,19 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --breakdown    # phases 1-3 and K2's and K3's stage breakdowns only
     python3 chip_smoke.py --times        # phases 1, 3 and K1's / K2's / K3's device times only
+    python3 chip_smoke.py --bulk         # phases 1, 3 and bulk passes at inflight 3, 1, 1, 3 only
 
 Phases, each of which must pass (nothing is caught and skipped):
 
 1. print the card's name, the device count and ``nvidia-smi``'s name and
    power limit;
 2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
-   (one ``nvcc`` per library, started together: K1, K2, K3 and K2's and
-   K3's counter builds) and print, per kernel instantiation (K1 and K2 are
-   templates on the box shape, K3 on the instance's row and covered
-   words), ptxas's registers, spills and stack frame and the warps an SM
-   holds at that register count; fails if any instantiation spills;
+   (one ``nvcc`` per library, started together: K1, K2, K3, the two probe
+   kernels P16 and PCV, and K2's and K3's counter builds) and print, per
+   kernel instantiation (K1 and K2 are templates on the box shape, K3 on
+   the instance's row and covered words, P16 on the mask bits, PCV on the
+   row words), ptxas's registers, spills and stack frame and the warps an
+   SM holds at that register count; fails if any instantiation spills;
 3. generate the corpus: 65,533 seeded 24-clue 9x9 boards carved with
    ``make_puzzle(unique=False)`` plus ``HARD_9`` (every carved board keeps
    its parent solution, so no board may come back unsat);
@@ -30,10 +32,13 @@ Phases, each of which must pass (nothing is caught and skipped):
    timed with minrem at that shape and on an 8,192-lane 16x16 frontier;
    then K2's counter build at the 9x9 shape with minrem and ``head:mlp``:
    each stage's share of the warps' ``clock64()`` cycles (the breakdown);
-6. the main path, ``solve_bulk(corpus, SUDOKU_9, BulkConfig())`` twice:
-   every solution valid and agreeing with its givens, no board unsat, K2's
-   launch count above zero; boards/s of the second pass and its trace;
-   then a third pass under torch.profiler for device time by kernel;
+6. the main path, ``solve_bulk(corpus, SUDOKU_9, BulkConfig())`` twice
+   (``inflight=3``): every solution valid and agreeing with its givens, no
+   board unsat, K2's launch count above zero; boards/s of the second pass
+   and its pack / solve / drain trace; then passes with ``inflight`` 1, 3
+   and 1, each result identical to the second pass's, with boards/s and
+   trace; then one more pass under torch.profiler for device time by
+   kernel;
 7. the composite path, ``solve_batch`` on 4,096 corpus boards with
    ``SolverConfig(propagator="pallas")``: verdicts checked, K1's launch
    count above zero;
@@ -74,11 +79,23 @@ Phases, each of which must pass (nothing is caught and skipped):
 14. snapshot resume: ``solve_batch_checkpointed`` on 4,096 boards,
    interrupted after its first chunk, resumed from the snapshot on disk,
    bit-identical to an uninterrupted run on every field;
-15. the seconds the script took, the build's among them, then one JSON
+15. P16, the uint16 probe's fixpoint kernel, against its plain version on
+   the probe's 65,536 boards (both mask widths; caps 64, 1 and 2; an odd
+   board count); then the probe's own run, ``probes.uint16.run_probe`` (16
+   chained dispatches per width, best of 3 interleaved), with its
+   launches counted from zero: ``uint32_fixpoints_per_s``,
+   ``uint16_fixpoints_per_s``, ``speedup_uint16``, ``bit_equal_low16``;
+   each width's device time, plain time and bound;
+16. PCV, the cover-primitive probe's kernel, against its plain version on
+   the probe's seed-0 inputs at 3, 0, 1 and 7 steps; then the probe's own
+   run, ``probes.cover_kernel.run_probe`` (which fails unless the output
+   words reproduce the pinned checksum 653,337,268); device time, plain
+   time and bound;
+17. the seconds the script took, the build's among them, then one JSON
    line ``{"kernels": [...]}`` (launches on the paths, times at the path's
    shape, the plain version's time, the bound; K2 once more for each
-   head);
-16. the last line, ``{"ok": true, "device": {...}}``.
+   head, P16 once per mask width);
+18. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -108,9 +125,24 @@ PEAK_INT32_OPS_PER_S = 67e12 / 4
 SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, composite=4096,
              n6=8192, n12=2048, n16=2048, n25=512, reps=5, cover_lanes=4096, cover_slots=128,
              cover_fanout_steps=160, cover_composite_lanes=1024, head_boards=32768,
-             flight_extra=2, snapshot_boards=4096, snapshot_chunk=8)
+             flight_extra=2, snapshot_boards=4096, snapshot_chunk=8, probe_boards=65536,
+             probe_iters=16)
 
 HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
+
+# Every TPU kernel of the JAX package and its benchmarks (each function
+# that reaches pl.pallas_call): its name here, its port's source and the
+# TPU kernel it replaces.
+KERNELS = {
+    "K1": ("K1 propagate_fixpoint", "propagate.cu",
+           "distributed_sudoku_solver_tpu/ops/pallas_propagate.py:441"),
+    "K2": ("K2 fused_rounds", "fused_step.cu",
+           "distributed_sudoku_solver_tpu/ops/pallas_step.py:510"),
+    "K3": ("K3 cover_fused_rounds", "cover.cu",
+           "distributed_sudoku_solver_tpu/ops/pallas_cover.py:545"),
+    "P16": ("P16 fixpoint_probe", "probe_uint16.cu", "benchmarks/probe_uint16.py:94"),
+    "PCV": ("PCV cover_probe", "probe_cover.cu", "benchmarks/probe_cover_kernel.py:176"),
+}
 
 # Enumeration counts the cover phases must reproduce exactly (OEIS A000170
 # for n-queens 14; 2,339 tilings x 4 symmetries for pentomino 6x10).
@@ -225,17 +257,6 @@ def cover_dispatch_ops(problem, work: dict, nodes: int, copies: int) -> float:
     take = 2 * wr + (_cols_per_row(problem) + 2) * wr + wc
     return (work["loaded"] * 3 * wr + work["columns"] + work["decrements"]
             + (work["takes"] + nodes) * take + copies * (wr + wc))
-
-
-def cover_dispatch_ops_recount(problem, work: dict, nodes: int, copies: int) -> float:
-    """The bound of K3's first design, which counted every uncovered column
-    at every search pass (AND, popcount and add per row word, 4 for the
-    keys), the takes and copies as above; printed beside the bound of
-    :func:`cover_dispatch_ops` for comparison."""
-    wr, wc = problem.w_rows, problem.w_cols
-    take = 2 * wr + (_cols_per_row(problem) + 2) * wr + wc
-    return (work["columns"] * (3 * wr + 4) + (work["takes"] + nodes) * take
-            + copies * (wr + wc))
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -614,29 +635,59 @@ def check_solutions(grids, solution, solved, unsat, what: str) -> None:
         raise AssertionError(f"{what}: {len(bad)} invalid solutions, first {bad[0]}")
 
 
-def phase_main(corpus, dev):
-    import numpy as np
+def bulk_pass(corpus, dev, inflight: int):
+    """One timed ``solve_bulk`` pass with ``BulkConfig(inflight=...)``:
+    (result, wall seconds to the device sync, trace)."""
     import torch
 
     from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
-    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
     from distributed_sudoku_solver_tpu_torch.ops.bulk import BulkConfig, solve_bulk
+
+    trace: dict = {}
+    t0 = time.perf_counter()
+    res = solve_bulk(corpus, SUDOKU_9, BulkConfig(inflight=inflight), trace=trace, device=dev)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, trace
+
+
+def _stage_line(trace: dict) -> str:
+    keys = ("pack_s", "solve_s", "drain_s", "first_pass_s", "chunks", "inflight",
+            "remaining_after_first")
+    return json.dumps({k: trace[k] for k in keys if k in trace})
+
+
+def bulk_turns(corpus, dev, order, ref=None, tag="[6]") -> dict:
+    """Bulk passes at each ``inflight`` of ``order`` in turn; each result
+    must equal ``ref`` (the first pass's when None).  Returns the walls
+    and traces per ``inflight``."""
+    import numpy as np
+
+    out: dict = {}
+    for inflight in order:
+        res, wall, trace = bulk_pass(corpus, dev, inflight)
+        ref = ref if ref is not None else res
+        for f in ("solution", "solved", "unsat", "by_propagation", "searched"):
+            if not np.array_equal(np.asarray(getattr(res, f)), np.asarray(getattr(ref, f))):
+                raise AssertionError(f"bulk inflight={inflight}: {f} differs from the first pass")
+        out.setdefault(inflight, []).append({"wall_s": wall, **trace, "rungs": len(trace["rungs"])})
+        log(f"{tag} bulk inflight={inflight}: {len(corpus)} boards in {wall:.4f} s = "
+            f"{len(corpus) / wall:.1f} boards/s; trace {_stage_line(trace)}")
+    return out
+
+
+def phase_main(corpus, dev):
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
     from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
     from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
-    cfg = BulkConfig()
-    t0 = time.perf_counter()
-    solve_bulk(corpus, SUDOKU_9, cfg, device=dev)
-    torch.cuda.synchronize()
-    log(f"[6] bulk pass 1: {time.perf_counter() - t0:.3f} s")
+    _, wall, _ = bulk_pass(corpus, dev, 3)
+    log(f"[6] bulk pass 1: {wall:.3f} s")
 
     cuda_step.fused_rounds_cuda.launches = 0
     cuda_propagate.propagate_fixpoint_cuda.launches = 0
-    trace: dict = {}
-    t0 = time.perf_counter()
-    res = solve_bulk(corpus, SUDOKU_9, cfg, trace=trace, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    res, wall, trace = bulk_pass(corpus, dev, 3)
     launches = {"K2": cuda_step.fused_rounds_cuda.launches,
                 "K1": cuda_propagate.propagate_fixpoint_cuda.launches}
     check_solutions(corpus, res.solution, res.solved, res.unsat, "bulk")
@@ -645,10 +696,11 @@ def phase_main(corpus, dev):
             raise AssertionError(f"bulk: HARD_9[{i}] differs from the oracle's solution")
     if launches["K2"] <= 0:
         raise AssertionError("bulk main path launched K2 no time")
-    log(f"[6] bulk pass 2: {len(corpus)} boards in {wall:.3f} s = "
+    log(f"[6] bulk pass 2 (inflight=3): {len(corpus)} boards in {wall:.3f} s = "
         f"{len(corpus) / wall:.1f} boards/s; searched {res.searched}, by propagation "
         f"{int(res.by_propagation.sum())}; launches {launches}")
     log(f"[6] trace {json.dumps(trace, default=str)}")
+    bulk_turns(corpus, dev, (1, 3, 1), ref=res)
     return launches
 
 
@@ -816,11 +868,9 @@ def phase_k3(frontiers, sizes, dev):
         work = cover_dispatch_work(problem, top, stack.clone(), has, base, count, **kw)
         n_ops = cover_dispatch_ops(problem, work, pushes, pushes + pops)
         bms, by = bound_ms(n_bytes, n_ops)
-        old_bms, _ = bound_ms(n_bytes, cover_dispatch_ops_recount(problem, work, pushes,
-                                                                  pushes + pops))
         log(f"[8] K3 timing {name} L={lanes} count_mode: {ms:.4f} ms (kernel, profiler; "
             f"wrapper {wrapper_ms:.4f} ms, CUDA events), plain {plain_ms:.4f} ms, "
-            f"bound {bms:.6f} ms ({by}; with a full count at every pass {old_bms:.6f} ms); "
+            f"bound {bms:.6f} ms ({by}); "
             f"pushes {pushes} pops {pops} sweeps {sweeps_total} (forced takes "
             f"{work['takes']}, uncovered columns searched {work['columns']} of "
             f"{sweeps_total * problem.n_primary}, counted from scratch {work['loaded']}, "
@@ -1275,6 +1325,127 @@ def phase_snapshot(corpus, sizes, dev):
         f"snapshot in {resume_wall:.3f} s; bit-identical on every field")
 
 
+def phase_p16(sizes, dev):
+    """P16 against its plain version, then the uint16 probe's own run (its
+    launches counted from zero) and each mask width's device time."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.probes import uint16 as p16
+
+    batch = sizes["probe_boards"]
+    cand32 = p16.probe_boards(batch).to(dev)
+    widths = {"uint32": torch.int32, "uint16": torch.int16}
+    err = 0
+    for name, dtype in widths.items():
+        x = cand32.to(dtype)
+        for cap, xx in ((64, x), (1, x), (2, x), (64, x[..., : batch - 1].contiguous())):
+            got = p16.fixpoint_probe_cuda(xx, cap)
+            want = p16.fixpoint_probe_plain(xx, cap)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            log(f"[15] P16 {name} T={xx.shape[2]} max_sweeps={cap}: max_abs_err {e}")
+            if e:
+                raise AssertionError(f"P16 disagrees with its plain version: {name} {cap}")
+            err = max(err, e)
+
+    p16.fixpoint_probe_cuda.launches = 0
+    out = p16.run_probe(batch, sizes["probe_iters"], reps=3, device=dev)
+    launches = p16.fixpoint_probe_cuda.launches
+    if launches != sum(out["launches"].values()) or min(out["launches"].values()) <= 0:
+        raise AssertionError(f"the uint16 probe's run launched P16 {out['launches']}")
+    if not out["bit_equal_low16"]:
+        raise AssertionError("the uint16 fixpoint differs from the uint32 one's low 16 bits")
+    log(json.dumps(out))
+
+    # Bound: each board read and written once; the sweeps each board's own
+    # loop runs, at the operations of a basic-rules sweep; 16-bit lanes
+    # counted two to an int32 operation (the kernel's SWAR pairing).
+    _, sweeps = p16.probe_sweeps(cand32)
+    rows = {}
+    for name, dtype in widths.items():
+        x = cand32.to(dtype)
+        ms = device_ms(lambda c: p16.fixpoint_probe_cuda(c), sizes["reps"], lambda x=x: x,
+                       "probe_fixpoint_kernel")
+        plain_ms = event_ms(lambda _, x=x: p16.fixpoint_probe_plain(x), 1)
+        n_bytes = 2 * x.numel() * x.element_size()
+        n_ops = int(sweeps.sum()) * sweep_ops(SUDOKU_9, "basic") / (2 if name == "uint16" else 1)
+        bms, by = bound_ms(n_bytes, n_ops)
+        log(f"[15] P16 timing {name} T={batch}: {ms:.4f} ms (kernel, profiler), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}); board-sweeps {int(sweeps.sum())}")
+        rows[name] = dict(launches=out["launches"][name], max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return rows
+
+
+def pcv_ops(inputs, steps: int) -> float:
+    """Integer operations of the cover probe on these inputs: per lane and
+    step, the lowest-row scan (2 per word) and the stack write (1 per
+    word); per row taken, one OR per word for each of its columns, 3 per
+    word to clear and keep, 8 meta increments; then the column counts
+    (AND, popcount and add per column and word)."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.probes import cover_kernel as pcv
+
+    inc, packed = inputs[0], inputs[1]
+    w, t = packed.shape
+    cols = (inc != 0).sum(1)
+    shifts = torch.arange(32, device=packed.device)[None, :, None]
+    ops = 0
+    for k in range(steps):
+        words = pcv.cover_probe_plain(*inputs, k)[1]
+        bits = ((words.to(torch.int64) & 0xFFFFFFFF)[:, None, :] >> shifts & 1).reshape(32 * w, t)
+        taken = bits.any(0)
+        first = bits.to(torch.int8).argmax(0)
+        ops += t * 3 * w + int(taken.sum()) * (3 * w + 8) + int(cols[first][taken].sum()) * w
+    return ops + inc.shape[1] * w * 3 * t
+
+
+def phase_pcv(sizes, dev):
+    """PCV against its plain version, then the cover probe's own run (its
+    launches counted from zero; it checks the pinned checksum)."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.probes import cover_kernel as pcv
+
+    inputs = [x.to(dev) for x in pcv.probe_inputs()]
+    err = 0
+    for steps in (pcv.STEPS, 0, 1, 7):
+        got = pcv.cover_probe_cuda(*inputs, steps)
+        want = pcv.cover_probe_plain(*inputs, steps)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(a, b) for a, b in zip(got, want))
+        log(f"[16] PCV steps={steps}: checksum {pcv.checksum(got[1])} max_abs_err {e}")
+        if e:
+            raise AssertionError(f"PCV disagrees with its plain version at {steps} steps")
+        err = max(err, e)
+
+    pcv.cover_probe_cuda.launches = 0
+    out = pcv.run_probe(dev)
+    launches = pcv.cover_probe_cuda.launches
+    if launches <= 0:
+        raise AssertionError("the cover probe's run launched PCV no time")
+    log(json.dumps(out))
+    ms = device_ms(lambda a: pcv.cover_probe_cuda(*a), sizes["reps"], lambda: inputs,
+                   "probe_cover_kernel")
+    plain_ms = event_ms(lambda _: pcv.cover_probe_plain(*inputs), sizes["reps"])
+    outs = pcv.cover_probe_cuda(*inputs)
+    n_bytes = sum(x.numel() * x.element_size() for x in (*inputs, *outs))
+    bms, by = bound_ms(n_bytes, pcv_ops(inputs, pcv.STEPS))
+    log(f"[16] PCV timing: {ms:.4f} ms (kernel, profiler), plain {plain_ms:.4f} ms, bound "
+        f"{bms:.6f} ms ({by})")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by)
+
+
+def kernel_row(key: str, suffix: str = "", **fields) -> dict:
+    name, source, replaces = KERNELS[key]
+    return dict(name=name + suffix, route="cuda",
+                source=f"distributed_sudoku_solver_tpu_torch/csrc/{source}",
+                replaces=replaces, library_ms=None, **fields)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1286,6 +1457,9 @@ def main(argv=None) -> int:
     ap.add_argument("--times", action="store_true",
                     help="phases 1 and 3 and the kernels' device times only (no result line); "
                          "runs against the checkout that holds this copy of the script")
+    ap.add_argument("--bulk", action="store_true",
+                    help="phases 1 and 3 and bulk passes at inflight 3, 1, 1, 3 only (no result "
+                         "line); runs against the checkout that holds this copy of the script")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1298,6 +1472,11 @@ def main(argv=None) -> int:
     device = phase_device()
     if args.times:
         phase_times(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
+        return 0
+    if args.bulk:
+        corpus = phase_corpus(SIZES)
+        bulk_pass(corpus, dev, 3)  # warm-up, the build included
+        log(json.dumps({"bulk": bulk_turns(corpus, dev, (3, 1, 1, 3), tag="[bulk]")}))
         return 0
     build_s = phase_build()
     if args.breakdown:
@@ -1323,25 +1502,20 @@ def main(argv=None) -> int:
     flight_launches, _ = phase_flight(corpus, minrem_nodes, SIZES, dev)
     head_launches["head:cw-slack"] += flight_launches
     phase_snapshot(corpus, SIZES, dev)
-    log(f"[15] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
+    p16 = phase_p16(SIZES, dev)
+    pcv = phase_pcv(SIZES, dev)
+    log(f"[17] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
         f"{build_s:.1f} s")
-    pkg = "distributed_sudoku_solver_tpu_torch/csrc"
     kernels = [
-        dict(name="K1 propagate_fixpoint", route="cuda", source=f"{pkg}/propagate.cu",
-             replaces="distributed_sudoku_solver_tpu/ops/pallas_propagate.py:441",
-             launches=comp_launches["K1"], library_ms=None, **k1),
-        dict(name="K2 fused_rounds", route="cuda", source=f"{pkg}/fused_step.cu",
-             replaces="distributed_sudoku_solver_tpu/ops/pallas_step.py:510",
-             launches=main_launches["K2"], library_ms=None, **k2),
-        dict(name="K3 cover_fused_rounds", route="cuda", source=f"{pkg}/cover.cu",
-             replaces="distributed_sudoku_solver_tpu/ops/pallas_cover.py:545",
-             launches=sum(cover_launches.values()), max_abs_err=k3_err, library_ms=None,
-             **k3_rows["pentomino6x10"]),
+        kernel_row("K1", launches=comp_launches["K1"], **k1),
+        kernel_row("K2", launches=main_launches["K2"], **k2),
+        kernel_row("K3", launches=sum(cover_launches.values()), max_abs_err=k3_err,
+                   **k3_rows["pentomino6x10"]),
     ]
-    kernels += [dict(name=f"K2 fused_rounds {rule}", route="cuda", source=f"{pkg}/fused_step.cu",
-                     replaces="distributed_sudoku_solver_tpu/ops/pallas_step.py:510",
-                     launches=head_launches[rule], library_ms=None, **k2_heads[rule])
+    kernels += [kernel_row("K2", f" {rule}", launches=head_launches[rule], **k2_heads[rule])
                 for rule in HEAD_RULES]
+    kernels += [kernel_row("P16", f" {width}", **row) for width, row in p16.items()]
+    kernels.append(kernel_row("PCV", **pcv))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                              "count": device["count"]}}), flush=True)

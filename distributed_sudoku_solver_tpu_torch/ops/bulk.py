@@ -7,6 +7,10 @@ free their lanes for the hard ones.  Unresolved stragglers (overflowed or
 out of steps) escalate through rungs with OR-parallel thief gangs and deep
 stacks, advanced in bounded-step chunks.
 
+The first pass keeps up to ``BulkConfig.inflight`` chunks in flight, as
+the JAX package does: the main thread packs, uploads and solves chunk k+1
+while one drain worker fetches and unpacks chunk k, in chunk order.
+
 Automatic choices name the card's kernels where the JAX package names the
 TPU's: on CUDA the first pass runs the fused round kernel
 (``step_impl='fused'``) and the composite steps the fixpoint kernel
@@ -16,8 +20,10 @@ the composite path, as the JAX package runs on a CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -36,6 +42,7 @@ from distributed_sudoku_solver_tpu_torch.ops.solve import (
     resolve_device,
     solve_batch_wire,
 )
+from distributed_sudoku_solver_tpu_torch.serving import faults
 from distributed_sudoku_solver_tpu_torch.utils.puzzles import solved_board
 
 
@@ -52,7 +59,7 @@ class BulkConfig:
     # Escalation rungs: (max jobs/chunk, lanes per job, stack slots[, step
     # budget]); None = geometry default (default_rungs).
     rungs: Optional[tuple] = None
-    inflight: int = 3  # kept for config parity; chunks run one after another
+    inflight: int = 3  # first-pass chunks solved ahead of the oldest one's drain
     first_pass_steps: int = 4096
     dispatch_steps: int = 512
     rung_stack_mb: int = 768  # cap on a rung's stack tensor (lanes x slots)
@@ -99,11 +106,18 @@ def solve_bulk(
 ) -> BulkResult:
     """Solve ``grids`` int[B, n, n] (0 = empty); B may be huge.
 
-    Results are independent of chunk sizes.  With ``trace`` (a dict),
-    per-stage host wall clocks are recorded into it: ``pack_s`` (pack and
-    upload), ``solve_s`` (the chunk solves, each ending in its result
-    fetch), ``drain_s`` (unpacking results), ``first_pass_s``,
-    ``remaining_after_first`` and per-rung dicts under ``rungs``."""
+    Results are independent of chunk sizes and of ``config.inflight``.
+    With ``trace`` (a dict), per-stage host wall clocks are recorded into
+    it: ``pack_s`` (pack and upload), ``solve_s`` (the chunk solves, on the
+    main thread), ``drain_s`` (each chunk's result fetch and unpack, on the
+    drain worker), ``first_pass_s``, ``remaining_after_first`` and per-rung
+    dicts under ``rungs``.  With ``inflight`` above 1 the drain of one
+    chunk overlaps the pack and solve of the next, so the three stages can
+    add up to more than ``first_pass_s``.
+
+    ``faults.fire("bulk.dispatch")`` (``serving/faults.py``) runs before
+    each first-pass chunk's pack and before each rung dispatch: an
+    installed fault injector can fail either, as in the JAX package."""
     if mesh is not None:
         raise NotImplementedError("solve_bulk: the mesh path is not ported yet")
     dev = resolve_device(device)
@@ -142,15 +156,15 @@ def solve_bulk(
     ).with_fused_steps(FUSED_STEPS_LINKED)
 
     stage = {"pack_s": 0.0, "solve_s": 0.0, "drain_s": 0.0}
-    t_first = time.perf_counter()
-    for lo in range(0, b, chunk):
+    # The solve's stream: the drain worker fetches on it, so its copy is
+    # ordered after the chunk's kernels (a new thread starts on the
+    # default stream, whatever the caller's current stream is).
+    stream = torch.cuda.current_stream(dev) if on_cuda else None
+
+    def drain(lo: int, res: torch.Tensor) -> None:
         t0 = time.perf_counter()
-        packed = torch.from_numpy(
-            wire.pack_grids_for(pad_to(grids[lo : lo + chunk], chunk), geom, fmt)
-        ).to(dev)
-        t1 = time.perf_counter()
-        fetched = solve_batch_wire(packed, geom, first_cfg, fmt=fmt, device=dev).cpu().numpy()
-        t2 = time.perf_counter()
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            fetched = res.cpu().numpy()  # the one result fetch per chunk
         hi = min(lo + chunk, b)
         k = hi - lo
         r_sol, r_solved, r_unsat, r_branched = wire.unpack_result_for(fetched, geom, fmt)
@@ -159,9 +173,28 @@ def solve_bulk(
         solved[lo:hi] = r_solved
         unsat[lo:hi] = r_unsat[:k]
         branched[lo:hi] = r_branched[:k]
-        stage["pack_s"] += t1 - t0
-        stage["solve_s"] += t2 - t1
-        stage["drain_s"] += time.perf_counter() - t2
+        stage["drain_s"] += time.perf_counter() - t0
+
+    # One drain worker keeps the drains in chunk order, and each writes its
+    # own rows of the result arrays.  The upload is a blocking copy from
+    # pageable memory, so no host buffer has to outlive its chunk's call.
+    t_first = time.perf_counter()
+    pending: list = []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for lo in range(0, b, chunk):
+            batch = pad_to(grids[lo : lo + chunk], chunk)
+            faults.fire("bulk.dispatch")
+            t0 = time.perf_counter()
+            packed = torch.from_numpy(wire.pack_grids_for(batch, geom, fmt)).to(dev)
+            t1 = time.perf_counter()
+            res = solve_batch_wire(packed, geom, first_cfg, fmt=fmt, device=dev)
+            stage["pack_s"] += t1 - t0
+            stage["solve_s"] += time.perf_counter() - t1
+            pending.append(pool.submit(drain, lo, res))
+            if len(pending) >= max(1, config.inflight):
+                pending.pop(0).result()
+        for f in pending:
+            f.result()
 
     by_propagation = solved & ~branched
     searched = int(branched.sum())
@@ -169,6 +202,7 @@ def solve_bulk(
         trace.update(stage)
         trace["first_pass_s"] = time.perf_counter() - t_first
         trace["chunks"] = -(-b // chunk)
+        trace["inflight"] = max(1, config.inflight)
         trace["step_impl"] = step_impl
         trace["fused_steps"] = first_cfg.fused_steps
         trace["remaining_after_first"] = int((~solved & ~unsat).sum())
@@ -191,6 +225,7 @@ def solve_bulk(
         state = start_frontier(torch.from_numpy(batch.astype(np.int32)).to(dev), geom, scfg)
         n_rung_jobs = len(batch)
         while True:
+            faults.fire("bulk.dispatch")
             state, status = advance(state, config.dispatch_steps, geom, scfg)
             dispatches[0] += 1
             info = unpack_status(status, n_rung_jobs)

@@ -10,7 +10,8 @@ A target is a source and a variant: ``""`` is the library the package
 runs; ``"clocks"`` compiles the same source with ``-DDSST_STAGE_CLOCKS``
 (per-stage ``clock64()`` counters, ``csrc/fixpoint.cuh`` for K1 and K2,
 ``csrc/cover.cu`` for K3) into a library of its own name, which only the
-stage breakdowns load.
+stage breakdowns load.  ``probe_uint16`` and ``probe_cover`` are the
+ports of the two Mosaic probes (``probes/``).
 Nothing here runs when the module is imported.
 """
 
@@ -29,7 +30,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("propagate", "fused_step", "cover")
+SOURCES = ("propagate", "fused_step", "cover", "probe_uint16", "probe_cover")
 HEADERS = ("fixpoint.cuh",)
 VARIANTS = {"": (), "clocks": ("-DDSST_STAGE_CLOCKS",)}
 TARGETS = tuple((name, "") for name in SOURCES)
@@ -175,7 +176,8 @@ def cover_instantiation(w_rows: int, w_cols: int, stage: bool) -> tuple[int, int
 def ptxas_kernels(report: str) -> list[dict]:
     """Per kernel instantiation in a ptxas ``-v`` report: its name, its
     integer template arguments (``Geo<BH, BW>`` of K1 and K2, ``<RW, CW,
-    ST>`` of K3; None for a kernel without them),
+    ST>`` of K3, the mask bits of P16, the row words of PCV; None for a
+    kernel without them),
     registers, spill stores and loads and stack frame, in bytes."""
     rows: list[dict] = []
     for line in report.splitlines():

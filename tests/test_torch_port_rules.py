@@ -3,8 +3,10 @@
 * The port imports neither JAX nor the JAX package (checked in a fresh
   subprocess, since this test process has JAX loaded, and by an AST scan).
 * Entry points default to CUDA and raise where it is absent, unless the
-  caller asks for the CPU; kernel wrappers never fall back to the plain
-  version for a tensor that is not on the CPU.
+  caller asks for the CPU (the probes' ``python -m`` entries need
+  ``--device cpu``); kernel wrappers, the probes' included, never fall
+  back to the plain version for a tensor that is not on the CPU.
+* ``chip_smoke.py``'s ``kernels`` line names all five kernels.
 * Tests marked ``cuda`` hold each kernel against its plain version on a
   card; a fixture decides whether a card exists and skips otherwise.
   Tolerance: exact equality.
@@ -41,6 +43,7 @@ from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
 from distributed_sudoku_solver_tpu_torch.ops.bulk import solve_bulk
 from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
 from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch, solve_csp, solve_one
+from distributed_sudoku_solver_tpu_torch.probes import cover_kernel, uint16
 from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, make_puzzle
 
 REPO = Path(__file__).resolve().parents[1]
@@ -125,6 +128,59 @@ def test_cover_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_cover.cover_fused_rounds(top, stack, lane.bool(), lane, lane, problem)
     assert cuda_cover.cover_fused_rounds_cuda.launches == before
+
+
+@pytest.mark.parametrize("module", ["uint16", "cover_kernel"])
+def test_probe_entry_points_need_a_card_unless_cpu_is_asked(module):
+    """Without a card the entry point fails and prints no result; with
+    ``--device cpu`` it prints the probe's JSON line."""
+    name = f"distributed_sudoku_solver_tpu_torch.probes.{module}"
+    code = ("import sys, torch; torch.cuda.is_available = lambda: False; import runpy; "
+            f"sys.argv = ['probe'] + sys.argv[1:]; runpy.run_module({name!r}, run_name='__main__')")
+    bare = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert bare.returncode != 0 and "metric" not in bare.stdout
+    assert "CUDA is not available" in bare.stderr
+    extra = ["--batch", "32", "--iters", "1"] if module == "uint16" else []
+    cpu = subprocess.run([sys.executable, "-c", code, "--device", "cpu", *extra], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert cpu.returncode == 0, cpu.stderr
+    assert '"metric"' in cpu.stdout.strip().splitlines()[-1]
+
+
+def test_probe_wrappers_never_fall_back_off_the_cpu():
+    meta = torch.empty((9, 9, 8), dtype=torch.int32, device="meta")
+    before = uint16.fixpoint_probe_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        uint16.fixpoint_probe(meta)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        uint16.fixpoint_probe(meta.to(torch.int16))
+    assert uint16.fixpoint_probe_cuda.launches == before
+    inc, packed, m, stack = (torch.empty_like(x, device="meta") for x in cover_kernel.probe_inputs())
+    before = cover_kernel.cover_probe_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cover_kernel.cover_probe(inc, packed, m, stack)
+    assert cover_kernel.cover_probe_cuda.launches == before
+
+
+def test_chip_smoke_kernels_line_names_all_five_kernels():
+    """K1-K3 and the two probes, each with its source and the TPU kernel it
+    replaces (a line of the function that reaches ``pl.pallas_call``)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    assert set(chip_smoke.KERNELS) == {"K1", "K2", "K3", "P16", "PCV"}
+    text = (REPO / "chip_smoke.py").read_text()
+    for key, (name, source, replaces) in chip_smoke.KERNELS.items():
+        assert name.startswith(key + " ") and f'kernel_row("{key}"' in text
+        assert (PKG / "csrc" / source).exists()
+        path, line = replaces.split(":")
+        lines = (REPO / path).read_text().splitlines()
+        assert "pl.pallas_call" in "\n".join(lines)
+        at = lines[int(line) - 1]
+        assert "pallas_call" in at or at.startswith("def "), (key, at)
 
 
 def test_chip_smoke_fails_without_a_card():

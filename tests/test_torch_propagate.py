@@ -107,3 +107,38 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         cuda_propagate.propagate_fixpoint_pallas(
             torch.zeros(2, 9, 9, dtype=torch.int32), tg, rules="extend")
+
+
+# Wider geometries, held against JAX here and not only against the port's
+# plain version on the card: 16x16, 25x25, 4x8 boxes (n = 32, so bit 31 of
+# the masks is a digit), 3x4 and 2x5 (boxes that are not square).
+WIDE_GEOMS = [(4, 4), (5, 5), (4, 8), (3, 4), (2, 5)]
+
+
+@pytest.mark.parametrize("bh,bw", WIDE_GEOMS)
+def test_wide_sweeps_and_status_match_jax(bh, bw):
+    jg, tg = JGeometry(bh, bw), Geometry(bh, bw)
+    cand = _boards(bh, bw, count=10, seed=bh * 11 + bw)
+    for name in ("propagate_sweep", "box_line_sweep", "naked_subsets_sweep"):
+        want = _j(getattr(jp, name)(jnp.asarray(cand), jg))
+        got = getattr(tp, name)(_t(cand), tg).numpy()
+        assert np.array_equal(got, want), name
+    js, ts = jp.board_status(jnp.asarray(cand), jg), tp.board_status(_t(cand), tg)
+    assert np.array_equal(ts.solved.numpy(), np.asarray(js.solved))
+    assert np.array_equal(ts.contradiction.numpy(), np.asarray(js.contradiction))
+    if bh * bw == 32:
+        assert (cand >> 31).any()
+
+
+@pytest.mark.parametrize("rules", ["basic", "extended", "subsets"])
+@pytest.mark.parametrize("bh,bw", WIDE_GEOMS)
+def test_wide_fixpoint_matches_jax_on_every_tier(bh, bw, rules):
+    jg, tg = JGeometry(bh, bw), Geometry(bh, bw)
+    cand = _boards(bh, bw, count=10, seed=bh * 13 + bw)
+    want, want_sweeps = jp.propagate(jnp.asarray(cand), jg, rules=rules)
+    got, sweeps = tp.propagate(_t(cand), tg, rules=rules)
+    assert np.array_equal(got.numpy(), _j(want))
+    assert int(sweeps) == int(want_sweeps)
+    per_mask, per_board = tp.propagate_per_board(_t(cand), tg, rules=rules)
+    assert np.array_equal(per_mask.numpy(), _j(want))
+    assert int(per_board.max()) == int(want_sweeps)

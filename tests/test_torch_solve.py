@@ -71,6 +71,22 @@ def test_composite_solve_bit_exact_vs_jax(bh, bw, kw):
     _assert_same(got, want)
 
 
+# Wider boards than the rows above: 16x16 with minrem, then with the
+# extended rules and a mixed branch rule, and 12x12 (3x4 boxes) with subsets.
+@pytest.mark.parametrize("bh,bw,kw", [
+    (4, 4, dict(min_lanes=16)),
+    (4, 4, dict(min_lanes=16, rules="extended", branch="mixed")),
+    (3, 4, dict(min_lanes=16, rules="subsets")),
+], ids=["16x16-minrem", "16x16-extended-mixed", "12x12-subsets"])
+def test_wide_composite_solve_bit_exact_vs_jax(bh, bw, kw):
+    grids = _grids(bh, bw, 6, seed=bh * 10 + bw, frac=0.45)
+    jcfg = JSolverConfig(max_steps=3000, stack_slots=24, **kw)
+    want = jax_solve_batch(jnp.asarray(grids), JGeometry(bh, bw), jcfg)
+    got = solve_batch(grids, Geometry(bh, bw), SolverConfig.from_fields(jcfg), device="cpu")
+    _assert_same(got, want)
+    assert bool(got.solved.any()) and int(got.nodes.sum()) > 0 and int(got.steals) > 0
+
+
 def test_count_all_and_unsat_bit_exact_vs_jax():
     grids = _grids(2, 2, 6, seed=3, frac=0.2)
     grids[0] = 0  # empty 4x4 board: 288 solutions
