@@ -7,6 +7,7 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py --breakdown    # phases 1-3 and K2's and K3's stage breakdowns only
     python3 chip_smoke.py --times        # phases 1, 3 and K1's / K2's / K3's device times only
     python3 chip_smoke.py --bulk         # phases 1, 3 and bulk passes at inflight 3, 1, 1, 3 only
+    python3 chip_smoke.py --serving      # phases 1-3, 12 and the serving phase (17) only
 
 Phases, each of which must pass (nothing is caught and skipped):
 
@@ -91,11 +92,35 @@ Phases, each of which must pass (nothing is caught and skipped):
    run, ``probes.cover_kernel.run_probe`` (which fails unless the output
    words reproduce the pinned checksum 653,337,268); device time, plain
    time and bound;
-17. the seconds the script took, the build's among them, then one JSON
+17. the serving stack over HTTP, at the CLI's default 9x9 deployment
+   (``max_batch=256``, ``chunk_steps=64``, S=64, basic rules, minrem,
+   ``ResidentConfig()``, ``MegastepConfig()``), ``host_fetch`` counted by
+   tag.  Node F (``SolverConfig(step_impl="fused")``, K2): 1,024
+   ``POST /solve`` from 32 client threads (corpus boards, HARD_9 and 16
+   carved 16x16 boards; clients honour 429 and Retry-After), a burst of
+   the 200 hardest corpus boards at once without retries (must draw a 429
+   with Retry-After), 8 ``POST /solve?latency=1`` (HARD_9 and the five
+   hardest), a ``count_all`` on an 8-solution board (equal to the
+   oracle's count), ``POST /solve_batch`` of 4,096 boards as lines, then
+   ``GET /stats``, ``/metrics``, ``/metrics?format=prometheus`` (promck
+   clean), ``/status`` and ``/trace/<uuid>?analyze=1``; K2's launches
+   counted from zero, one ``status`` fetch per chunk and per megastep
+   flight, every fallback counter 0.  Node C
+   (``SolverConfig(propagator="pallas")``, no resident flight, K1): 256
+   concurrent ``POST /solve``; K1's launches counted from zero, one
+   ``status`` fetch per chunk; its flights replayed by hand on an engine
+   with ``SolverConfig()`` must give bit-identical solutions and node
+   counts.  Every 201 valid and keeping its givens, no satisfiable board
+   422, each verdict equal to ``solve_batch``'s on the same config.
+   Printed: requests, requests/s and p50 / p95 / p99 ms per route, the
+   engines' chunk counts and walls, host syncs per chunk per route (torch's
+   sync debug mode, one route at a time);
+18. the seconds the script took, the build's among them, then one JSON
    line ``{"kernels": [...]}`` (launches on the paths, times at the path's
    shape, the plain version's time, the bound; K2 once more for each
-   head, P16 once per mask width);
-18. the last line, ``{"ok": true, "device": {...}}``.
+   head, P16 once per mask width; K1's and K2's launches include the
+   serving phase's);
+19. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -108,6 +133,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -126,7 +152,8 @@ SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, com
              n6=8192, n12=2048, n16=2048, n25=512, reps=5, cover_lanes=4096, cover_slots=128,
              cover_fanout_steps=160, cover_composite_lanes=1024, head_boards=32768,
              flight_extra=2, snapshot_boards=4096, snapshot_chunk=8, probe_boards=65536,
-             probe_iters=16)
+             probe_iters=16, serving_mass=1024, serving_clients=32, serving_burst=200,
+             serving_static=256, serving_bulk=4096)
 
 HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
 
@@ -147,6 +174,20 @@ KERNELS = {
 # Enumeration counts the cover phases must reproduce exactly (OEIS A000170
 # for n-queens 14; 2,339 tilings x 4 symmetries for pentomino 6x10).
 COVER_COUNTS = {"nqueens14": 365_596, "pentomino6x10": 9_356, "nqueens12": 14_200}
+
+
+_HARD9_SOLUTIONS: list = []
+
+
+def hard9_solutions():
+    """HARD_9's solutions from the copied oracle, computed once (the pure
+    Python search takes most of a minute on HARD_9[2])."""
+    if not _HARD9_SOLUTIONS:
+        from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
+        from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+        _HARD9_SOLUTIONS.extend(solve_oracle(h) for h in HARD_9)
+    return _HARD9_SOLUTIONS
 
 
 def log(msg: str) -> None:
@@ -679,7 +720,6 @@ def phase_main(corpus, dev):
     import numpy as np
 
     from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
-    from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
     from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
     _, wall, _ = bulk_pass(corpus, dev, 3)
@@ -692,7 +732,7 @@ def phase_main(corpus, dev):
                 "K1": cuda_propagate.propagate_fixpoint_cuda.launches}
     check_solutions(corpus, res.solution, res.solved, res.unsat, "bulk")
     for i, h in enumerate(HARD_9):
-        if not np.array_equal(res.solution[i], solve_oracle(h)):
+        if not np.array_equal(res.solution[i], hard9_solutions()[i]):
             raise AssertionError(f"bulk: HARD_9[{i}] differs from the oracle's solution")
     if launches["K2"] <= 0:
         raise AssertionError("bulk main path launched K2 no time")
@@ -995,7 +1035,6 @@ def phase_cover_composite(sizes, dev):
     from distributed_sudoku_solver_tpu_torch.ops import cuda_cover
     from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
     from distributed_sudoku_solver_tpu_torch.ops.solve import solve_csp
-    from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
     from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
     cuda_cover.cover_fused_rounds_cuda.launches = 0
@@ -1020,7 +1059,7 @@ def phase_cover_composite(sizes, dev):
     wall = time.perf_counter() - t0
     for i, h in enumerate(HARD_9):
         grid = decode_sudoku_cover(p, res.solution[i], 9)
-        if not bool(res.solved[i]) or not np.array_equal(grid, solve_oracle(h)):
+        if not bool(res.solved[i]) or not np.array_equal(grid, hard9_solutions()[i]):
             raise AssertionError(f"sudoku-cover: HARD_9[{i}] differs from the oracle's solution")
     if cuda_cover.cover_fused_rounds_cuda.launches:
         raise AssertionError("the composite cover path launched K3")
@@ -1137,7 +1176,6 @@ def phase_heads_main(corpus, sizes, dev):
     from distributed_sudoku_solver_tpu_torch.ops import cuda_step
     from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
     from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch
-    from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
     from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
     grids = corpus[: sizes["head_boards"]]
@@ -1156,7 +1194,7 @@ def phase_heads_main(corpus, sizes, dev):
         check_solutions(grids, res.solution.numpy(), res.solved.numpy(), res.unsat.numpy(),
                         f"heads {rule}")
         for i, h in enumerate(HARD_9):
-            if not np.array_equal(res.solution[i].numpy(), solve_oracle(h)):
+            if not np.array_equal(res.solution[i].numpy(), hard9_solutions()[i]):
                 raise AssertionError(f"{rule}: HARD_9[{i}] differs from the oracle's solution")
         if launches[rule] <= 0:
             raise AssertionError(f"{rule}: the head path launched K2 no time")
@@ -1439,6 +1477,438 @@ def phase_pcv(sizes, dev):
                 bound_by=by)
 
 
+# -- phase 17: the serving stack over HTTP -------------------------------------
+
+
+def _http(port: int, path: str, body=None, timeout: float = 600.0):
+    """One request to a local node: ``(status, headers, body)``, the body
+    parsed as JSON unless the response is text."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, headers, raw = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        status, headers, raw = e.code, dict(e.headers), e.read()
+    text = raw.decode()
+    return status, headers, (json.loads(text) if headers.get("Content-Type", "").startswith(
+        "application/json") else text)
+
+
+def _post_all(port: int, boards, threads: int, path: str = "/solve", retry_429: bool = True):
+    """POST every board from ``threads`` client threads at once.  With
+    ``retry_429`` a client sleeps the answer's Retry-After and tries again.
+    Returns per board ``(status, headers, body, latency_ms, tries)`` and the
+    wall of the whole run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(board):
+        t0 = time.perf_counter()
+        tries = 0
+        while True:
+            tries += 1
+            out = _http(port, path, {"sudoku": board.tolist()})
+            if out[0] != 429 or not retry_429:
+                return (*out, (time.perf_counter() - t0) * 1e3, tries)
+            time.sleep(float(out[1]["Retry-After"]))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        results = list(pool.map(one, boards))
+    return results, time.perf_counter() - t0
+
+
+def _route_line(route: str, results, wall_s: float) -> dict:
+    import numpy as np
+
+    lat = np.asarray([r[3] for r in results], dtype=np.float64)
+    p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+    row = dict(route=route, requests=len(results), requests_per_s=len(results) / wall_s,
+               p50_ms=float(p50), p95_ms=float(p95), p99_ms=float(p99))
+    log(f"[17] route {route}: {row['requests']} requests in {wall_s:.3f} s, "
+        f"{row['requests_per_s']:.1f} requests/s, p50 {p50:.3f} / p95 {p95:.3f} / "
+        f"p99 {p99:.3f} ms")
+    return row
+
+
+def _check_answers(boards, results, geom_of, what: str) -> None:
+    """Every 201 a valid solution keeping its givens; no 422 (every board
+    here is satisfiable); nothing else but 429."""
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import is_valid_solution
+
+    for i, (board, (status, _, body, _, _)) in enumerate(zip(boards, results)):
+        if status == 201:
+            sol = np.asarray(body["solution"])
+            if not is_valid_solution(sol, geom_of(board)) or not np.array_equal(
+                    sol[board > 0], board[board > 0]):
+                raise AssertionError(f"{what} #{i}: invalid solution or lost givens")
+        elif status != 429:
+            raise AssertionError(f"{what} #{i}: status {status} {body}")
+
+
+def _check_verdicts(boards, results, cfg, dev, what: str) -> None:
+    """Each answered verdict against the port's solve_batch on the same
+    boards and config (verdicts do not depend on the batch); the solution
+    itself against the oracle's only where the board has one (HARD_9)."""
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import geometry_for_size
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    by_n: dict = {}
+    for i, b in enumerate(boards):
+        by_n.setdefault(b.shape[0], []).append(i)
+    for n, idx in by_n.items():
+        res = solve_batch(np.stack([boards[i] for i in idx]), geometry_for_size(n), cfg,
+                          device=dev)
+        solved, unsat = res.solved.cpu().numpy(), res.unsat.cpu().numpy()
+        for k, i in enumerate(idx):
+            status = results[i][0]
+            if status == 429:
+                continue
+            if (status == 201) != bool(solved[k]) or (status == 422) != bool(unsat[k]):
+                raise AssertionError(f"{what} #{i}: status {status} against solve_batch's "
+                                     f"solved {solved[k]} unsat {unsat[k]}")
+    hard = [h.tolist() for h in HARD_9]
+    for b, r in zip(boards, results):
+        if b.tolist() in hard and r[0] == 201:
+            want = hard9_solutions()[hard.index(b.tolist())]
+            if not np.array_equal(np.asarray(r[2]["solution"]), want):
+                raise AssertionError(f"{what}: a HARD_9 solution differs from the oracle's")
+
+
+def _syncs_during(fn):
+    """``(fn(), host syncs during it)`` across every thread of the process
+    (torch's sync debug mode is process-wide)."""
+    counts: dict = {}
+    out = _count_syncs(fn, counts, "all")
+    return out, counts.get("all", 0)
+
+
+def chunk_syncs(dev, turns=("fused", "composite", "composite", "fused"), chunks=8) -> dict:
+    """Host syncs and host wall per status chunk of the two status advances
+    the engine and the resident flight drive (``ops.cuda_step.
+    advance_frontier_fused_status``, ``utils.checkpoint.
+    advance_frontier_status``), at a static flight's shape: 128 carved
+    26-clue boards on 128 lanes, 64 stack slots, chunks of 64 steps, each
+    chunk's status fetched once.  The boards are enumerated (``count_all``,
+    the ``POST /solve`` route's), so every chunk of the run has live
+    lanes.  Runs against the checkout that holds this copy of
+    the script, so a copy beside a parent's package measures the parent."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import advance_frontier_fused_status
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import STATUS_LIVE_SUM, SolverConfig
+    from distributed_sudoku_solver_tpu_torch.utils.checkpoint import (
+        advance_frontier_status,
+        start_frontier,
+    )
+
+    grids = torch.from_numpy(make_corpus(SUDOKU_9, 128, seed=7, n_clues=26)).to(dev)
+    cfg = SolverConfig(lanes=128, stack_slots=64, count_all=True)
+    impls = {"fused": (advance_frontier_fused_status, replace(cfg, step_impl="fused")),
+             "composite": (advance_frontier_status, cfg)}
+
+    def run(impl, counts=None):
+        advance, cfg = impls[impl]
+        state = start_frontier(grids, SUDOKU_9, cfg)
+        torch.cuda.synchronize()
+        walls = []
+        for k in range(chunks):
+            t0 = time.perf_counter()
+            state, status = _count_syncs(lambda: advance(state, 64, SUDOKU_9, cfg), counts, impl)
+            status = _count_syncs(lambda: status.cpu(), counts, impl)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if int(status[STATUS_LIVE_SUM]) == 0:
+                raise AssertionError(f"[chunk-syncs] {impl}: chunk {k} ran with no live lane")
+        return walls, int(status[0])
+
+    out = {}
+    for impl in impls:
+        run(impl)  # warm-up, K2's load included
+    for impl in turns:
+        counts = {}
+        walls, steps = run(impl, counts)
+        row = out.setdefault(impl, {"syncs_per_chunk": [], "chunk_ms_p50": [], "steps": steps})
+        row["syncs_per_chunk"].append(counts.get(impl, 0) / chunks)
+        row["chunk_ms_p50"].append(float(np.median(walls)))
+    log(f"[chunk-syncs] {REPO}: {json.dumps(out)}")
+    return out
+
+
+def _zero_breakers(m: dict) -> None:
+    """The fallbacks that could hide a failing K2 must not have fired."""
+    fa = m["faults"]
+    trips = {
+        "fused_downgrades": m["fused_downgrades"],
+        "fault_downgrades_fused": fa["downgrades"]["fused_to_composite"],
+        "fault_lane_halvings": fa["downgrades"]["lanes_halved"],
+    }
+    for g, r in m.get("resident", {}).items():
+        b = r["faults"]["breaker"]
+        trips[f"resident {g} breaker"] = b["transitions"] + (b["state"] != "closed")
+        trips[f"resident {g} rebuilds"] = r["faults"]["rebuilds"]
+    for g, r in m.get("megastep", {}).items():
+        b = r["breaker"]
+        trips[f"megastep {g} breaker"] = b["transitions"] + (b["state"] != "closed")
+        trips[f"megastep {g} degraded"] = sum(r["degraded"].values())
+    if any(trips.values()):
+        raise AssertionError(f"a fallback fired on the fused node: {trips}")
+
+
+def phase_serving(corpus, minrem_nodes, device, sizes, dev):
+    """The serving stack at the CLI's default 9x9 deployment, over HTTP:
+    node F (fused, K2: resident, latency, count_all, solve_batch), then
+    node C (composite, K1: static flights) against the default config."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import (
+        SUDOKU_9,
+        SUDOKU_16,
+        geometry_for_size,
+    )
+    from distributed_sudoku_solver_tpu_torch.obs import promck, trace
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.serving import engine as engine_mod
+    from distributed_sudoku_solver_tpu_torch.serving.engine import Job, SolverEngine
+    from distributed_sudoku_solver_tpu_torch.serving.http import ApiServer, StandaloneNode
+    from distributed_sudoku_solver_tpu_torch.serving.megastep import MegastepConfig
+    from distributed_sudoku_solver_tpu_torch.serving.scheduler import ResidentConfig
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import count_solutions, is_valid_solution
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, make_puzzle, to_line
+
+    geom_of = lambda b: geometry_for_size(b.shape[0])  # noqa: E731
+    # host_fetch wrapped for the phase: every tag counted.
+    fetches: dict = {}
+    fetch_lock = threading.Lock()
+    real_fetch = engine_mod.host_fetch
+
+    def counting_fetch(x, floor_s=0.0, tag="status"):
+        with fetch_lock:  # the loop and handler threads both fetch
+            fetches[tag] = fetches.get(tag, 0) + 1
+        return real_fetch(x, floor_s=floor_s, tag=tag)
+
+    engine_mod.host_fetch = counting_fetch
+    routes, syncs = [], {}
+    hard9 = [np.asarray(h, np.int32) for h in HARD_9]
+    order = np.argsort(-minrem_nodes[len(HARD_9):]) + len(HARD_9)
+    try:
+        # -- node F: SolverConfig(step_impl="fused"), the CLI's serving shape.
+        cfg_f = SolverConfig(step_impl="fused")
+        eng = SolverEngine(config=cfg_f, max_batch=256, chunk_steps=64,
+                           resident=ResidentConfig(), megastep=MegastepConfig(),
+                           device=dev).start()
+        api = ApiServer(StandaloneNode(eng, address="127.0.0.1:f"), host="127.0.0.1",
+                        port=0, solve_timeout_s=600).start()
+        try:
+            torch.cuda.synchronize()
+            cuda_step.fused_rounds_cuda.launches = 0
+            fetches.clear()
+            b16 = [make_puzzle(SUDOKU_16, 100 + i, unique=False).astype(np.int32)
+                   for i in range(16)]
+            n_mass = sizes["serving_mass"] - len(hard9) - len(b16)
+            mass = [corpus[len(HARD_9) + i] for i in range(n_mass)] + hard9 + b16
+            mass = [mass[i] for i in np.random.default_rng(17).permutation(len(mass))]
+            res, wall = _post_all(api.port, mass, threads=sizes["serving_clients"])
+            _check_answers(mass, res, geom_of, "resident")
+            if any(r[0] != 201 for r in res):
+                raise AssertionError("a resident request was not answered 201 after retries")
+            routes.append(_route_line("resident", res, wall))
+            retried = sum(r[4] > 1 for r in res)
+            burst = [corpus[i] for i in order[: sizes["serving_burst"]]]
+            bres, bwall = _post_all(api.port, burst, threads=len(burst), retry_429=False)
+            _check_answers(burst, bres, geom_of, "burst")
+            n429 = [r for r in bres if r[0] == 429]
+            if not n429 or any(int(r[1]["Retry-After"]) < 1 or r[2]["retry_after_s"] <= 0
+                               for r in n429):
+                raise AssertionError(f"the {len(burst)}-request burst drew {len(n429)} 429s "
+                                     f"with Retry-After")
+            log(f"[17] burst: {len(burst)} requests at once, {len(n429)} answered 429 with "
+                f"Retry-After, {sum(r[0] == 201 for r in bres)} 201, {bwall:.3f} s; "
+                f"{retried} of the resident route's requests were retried after a 429")
+            lat_boards = hard9 + [corpus[i] for i in order[:5]]
+            lres, lwall = _post_all(api.port, lat_boards, threads=1, path="/solve?latency=1")
+            _check_answers(lat_boards, lres, geom_of, "latency")
+            routes.append(_route_line("latency", lres, lwall))
+            sol0 = hard9_solutions()[0]
+            multi = np.where(np.isin(sol0, (1, 2)), 0, sol0).astype(np.int32)
+            want = count_solutions(multi, SUDOKU_9, limit=10_000)
+            st, _, body = _http(api.port, "/solve", {"sudoku": multi.tolist(),
+                                                     "count_all": True})
+            if st != 200 or body["count"] != want or not body["complete"] or \
+                    not is_valid_solution(np.asarray(body["solution"])):
+                raise AssertionError(f"count_all: {st} {body} against the oracle's {want}")
+            log(f"[17] count_all: {body['count']} solutions (oracle {want}), complete, "
+                f"{body['duration'] * 1e3:.3f} ms")
+            bulk = corpus[len(HARD_9):len(HARD_9) + sizes["serving_bulk"]]
+            t0 = time.perf_counter()
+            st, _, body = _http(api.port, "/solve_batch",
+                                {"lines": [to_line(b) for b in bulk], "size": 9})
+            bwall_s = time.perf_counter() - t0
+            if st != 200 or body["solved"] != len(bulk) or body["unsat"]:
+                raise AssertionError(f"solve_batch: {st}, solved {body.get('solved')}")
+            for b, line in zip(bulk, body["solutions"]):
+                sol = np.asarray([int(c, 36) for c in line]).reshape(9, 9)
+                if not is_valid_solution(sol) or not np.array_equal(sol[b > 0], b[b > 0]):
+                    raise AssertionError("solve_batch: an invalid solution")
+            routes.append(_route_line("solve_batch", [(st, None, None, bwall_s * 1e3, 1)],
+                                      bwall_s))
+            log(f"[17] solve_batch: {len(bulk)} boards, {len(bulk) / bwall_s:.0f} boards/s")
+            torch.cuda.synchronize()
+            launches_f = cuda_step.fused_rounds_cuda.launches
+            m = eng.metrics()
+            rflights = [rf for rf in eng._resident_flights()]
+            mflights = [mf for mf in eng._megastep_flights()]
+            want_status = (eng.chunk_wall.snapshot()["total"]
+                           + sum(rf.chunks for rf in rflights)
+                           + sum(mf.flights for mf in mflights))
+            log(f"[17] node F host_fetch by tag {json.dumps(fetches)}; static chunks "
+                f"{eng.chunk_wall.snapshot()['total']}, resident chunks "
+                f"{sum(rf.chunks for rf in rflights)}, megastep flights "
+                f"{sum(mf.flights for mf in mflights)}")
+            if fetches.get("status", 0) != want_status:
+                raise AssertionError(f"status fetches {fetches.get('status')} != one per "
+                                     f"chunk and per megastep flight ({want_status})")
+            if launches_f <= 0:
+                raise AssertionError("node F launched K2 no time")
+            _zero_breakers(m)
+            for path in ("/stats", "/metrics", "/status"):
+                st, _, body = _http(api.port, path)
+                if st != 200 or not isinstance(body, dict):
+                    raise AssertionError(f"GET {path}: {st}")
+            st, _, text = _http(api.port, "/metrics?format=prometheus")
+            errors = promck.check_text(text)
+            if st != 200 or errors:
+                raise AssertionError(f"prometheus exposition: {st} {errors[:5]}")
+            with trace.installed(trace.TraceRecorder(ring=4096)):
+                st, _, _ = _http(api.port, "/solve", {"sudoku": hard9[1].tolist(),
+                                                      "uuid": "smoke-trace"})
+                st2, _, body = _http(api.port, "/trace/smoke-trace?analyze=1")
+            if st != 201 or st2 != 200 or not body.get("analysis"):
+                raise AssertionError(f"trace analyze: {st} {st2}")
+            for name, r in m.get("resident", {}).items():
+                log(f"[17] resident {name}: chunks {r['chunks']}, admitted {r['admitted']}, "
+                    f"rejected {r['rejected']}, status-sync wall {r.get('chunk_wall_ms')}, "
+                    f"dispatch wall {r.get('dispatch_wall_ms')}, event wall "
+                    f"{r.get('event_wall_ms')}, admission wait {r.get('admission_wait_ms')}")
+            for name, r in m.get("megastep", {}).items():
+                log(f"[17] megastep {name}: flights {r['flights']}, chunks per flight "
+                    f"{r.get('chunks_per_flight')}, flight wall {r.get('flight_wall_ms')}")
+            log(f"[17] node F engine: static chunks {eng.chunk_wall.snapshot()['total']}, "
+                f"dispatch wall {m.get('dispatch_wall_ms')}, sync wall "
+                f"{m.get('sync_wall_ms')}; K2 launches {launches_f}; fallbacks all 0; "
+                f"prometheus clean; /trace analyze served")
+            # Host syncs per chunk, one route at a time; their answers are
+            # checked as the routes' own are.
+            before = sum(rf.chunks for rf in rflights)
+            (sync_res, _), n = _syncs_during(lambda: _post_all(api.port, mass[:64], threads=16))
+            syncs["resident_per_chunk"] = n / max(1, sum(rf.chunks for rf in rflights) - before)
+            _check_answers(mass[:64], sync_res, geom_of, "resident (syncs)")
+            before = sum(mf.flights for mf in mflights)
+            (sync_lat, _), n = _syncs_during(lambda: _post_all(api.port, hard9, threads=1,
+                                                               path="/solve?latency=1"))
+            syncs["latency_per_flight"] = n / max(1, sum(mf.flights for mf in mflights) - before)
+            _check_answers(hard9, sync_lat, geom_of, "latency (syncs)")
+            (st, _, body), n = _syncs_during(lambda: _http(api.port, "/solve_batch", {
+                "boards": [b.tolist() for b in bulk[:1024]]}))
+            syncs["solve_batch_per_call"] = n
+            if st != 200 or body["solved"] != 1024 or body["unsat"]:
+                raise AssertionError(f"solve_batch (syncs): {st}, solved {body.get('solved')}")
+            _zero_breakers(eng.metrics())  # after every request node F served
+        finally:
+            api.stop()
+            eng.stop(timeout=10)
+        # The reference verdicts (their K2 launches are not the node's).
+        _check_verdicts(mass + burst + lat_boards + mass[:64] + hard9,
+                        res + bres + lres + sync_res + sync_lat, cfg_f, dev, "node F")
+
+        # -- node C: composite with K1, static flights only.
+        cfg_c = SolverConfig(propagator="pallas")
+        eng = SolverEngine(config=cfg_c, max_batch=256, chunk_steps=64, resident=None,
+                           device=dev)
+        groups = []
+        start_flight = eng._start_flight
+
+        def recording_start(geom, cfg, jobs):
+            groups.append((geom, list(jobs)))
+            return start_flight(geom, cfg, jobs)
+
+        eng._start_flight = recording_start
+        eng.start()
+        api = ApiServer(StandaloneNode(eng, address="127.0.0.1:c"), host="127.0.0.1",
+                        port=0, solve_timeout_s=600).start()
+        try:
+            static = [corpus[len(HARD_9) + 5000 + i] for i in range(sizes["serving_static"])]
+            torch.cuda.synchronize()
+            cuda_propagate.propagate_fixpoint_cuda.launches = 0
+            fetches.clear()
+            sres, swall = _post_all(api.port, static, threads=256, retry_429=False)
+            torch.cuda.synchronize()
+            launches_c = cuda_propagate.propagate_fixpoint_cuda.launches
+            _check_answers(static, sres, geom_of, "static")
+            if any(r[0] != 201 for r in sres):
+                raise AssertionError("a static-flight request was not answered 201")
+            routes.append(_route_line("static", sres, swall))
+            if launches_c <= 0:
+                raise AssertionError("node C launched K1 no time")
+            if fetches.get("status", 0) != eng.chunk_wall.snapshot()["total"]:
+                raise AssertionError(f"node C status fetches {fetches.get('status')} != "
+                                     f"chunks {eng.chunk_wall.snapshot()['total']}")
+            m = eng.metrics()
+            log(f"[17] node C: {len(groups)} static flights of {[len(j) for _, j in groups]} "
+                f"jobs, chunks {m['chunk_wall_ms']['count']}, dispatch wall "
+                f"{m.get('dispatch_wall_ms')}, sync wall {m.get('sync_wall_ms')}; K1 launches "
+                f"{launches_c}; host_fetch by tag {json.dumps(fetches)}")
+            before = eng.chunk_wall.snapshot()["total"]
+            (sync_static, _), n = _syncs_during(lambda: _post_all(
+                api.port, static[:32], threads=32, retry_429=False))
+            syncs["static_per_chunk"] = n / max(1, eng.chunk_wall.snapshot()["total"] - before)
+            _check_answers(static[:32], sync_static, geom_of, "static (syncs)")
+            if any(r[0] != 201 for r in sync_static):
+                raise AssertionError("a static-flight request (syncs) was not answered 201")
+        finally:
+            api.stop()
+            eng.stop(timeout=10)
+        # The same flights, by hand, on an engine with the default config:
+        # composite with the plain propagation, bit-identical by contract.
+        ref = SolverEngine(config=SolverConfig(), max_batch=256, chunk_steps=64, device=dev)
+        checked = 0
+        for geom, jobs in groups[: len(groups)]:
+            twins = [Job(uuid=f"ref-{j.uuid}", grid=j.grid, geom=geom) for j in jobs]
+            ref._start_flight(geom, ref.config, twins)
+            fl = ref._flights.pop()
+            while not ref._advance_flight(fl):
+                pass
+            for j, t in zip(jobs, twins):
+                if j.solution is None or t.solution is None or not np.array_equal(
+                        j.solution, t.solution) or j.nodes != t.nodes or j.solved != t.solved:
+                    raise AssertionError(f"static flight {j.uuid}: K1 and the plain "
+                                         f"propagation disagree")
+                checked += 1
+        log(f"[17] node C flights replayed with SolverConfig(): {checked} jobs, solutions "
+            f"and node counts bit-identical")
+        _check_verdicts(static + static[:32], sres + sync_static, cfg_c, dev, "node C")
+    finally:
+        engine_mod.host_fetch = real_fetch
+    log(f"[17] host syncs (torch sync debug mode): {json.dumps(syncs)}")
+    log(f"[17] {device['smi']}")
+    log(json.dumps({"serving": {"routes": routes, "syncs": syncs, "card": device["smi"]}}))
+    return {"K2": launches_f, "K1": launches_c}
+
+
 def kernel_row(key: str, suffix: str = "", **fields) -> dict:
     name, source, replaces = KERNELS[key]
     return dict(name=name + suffix, route="cuda",
@@ -1460,6 +1930,13 @@ def main(argv=None) -> int:
     ap.add_argument("--bulk", action="store_true",
                     help="phases 1 and 3 and bulk passes at inflight 3, 1, 1, 3 only (no result "
                          "line); runs against the checkout that holds this copy of the script")
+    ap.add_argument("--chunk-syncs", action="store_true",
+                    help="phase 1 and the host syncs and wall per status chunk of the fused and "
+                         "composite advances only (no result line); runs against the checkout "
+                         "that holds this copy of the script")
+    ap.add_argument("--serving", action="store_true",
+                    help="phases 1-3, 12 (for the corpus's hardest boards) and the serving "
+                         "phase only (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1473,6 +1950,9 @@ def main(argv=None) -> int:
     if args.times:
         phase_times(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
         return 0
+    if args.chunk_syncs:
+        log(json.dumps({"chunk_syncs": chunk_syncs(dev), "card": device["smi"]}))
+        return 0
     if args.bulk:
         corpus = phase_corpus(SIZES)
         bulk_pass(corpus, dev, 3)  # warm-up, the build included
@@ -1484,6 +1964,10 @@ def main(argv=None) -> int:
         phase_cover_breakdown(cover_frontiers(SIZES, dev), SIZES)
         return 0
     corpus = phase_corpus(SIZES)
+    if args.serving:
+        _, minrem_nodes = phase_heads_main(corpus, SIZES, dev)
+        phase_serving(corpus, minrem_nodes, device, SIZES, dev)
+        return 0
     k1 = phase_k1(corpus, SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
     phase_breakdown(corpus, SIZES, dev)
@@ -1504,11 +1988,12 @@ def main(argv=None) -> int:
     phase_snapshot(corpus, SIZES, dev)
     p16 = phase_p16(SIZES, dev)
     pcv = phase_pcv(SIZES, dev)
-    log(f"[17] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
+    serving = phase_serving(corpus, minrem_nodes, device, SIZES, dev)
+    log(f"[18] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
         f"{build_s:.1f} s")
     kernels = [
-        kernel_row("K1", launches=comp_launches["K1"], **k1),
-        kernel_row("K2", launches=main_launches["K2"], **k2),
+        kernel_row("K1", launches=comp_launches["K1"] + serving["K1"], **k1),
+        kernel_row("K2", launches=main_launches["K2"] + serving["K2"], **k2),
         kernel_row("K3", launches=sum(cover_launches.values()), max_abs_err=k3_err,
                    **k3_rows["pentomino6x10"]),
     ]

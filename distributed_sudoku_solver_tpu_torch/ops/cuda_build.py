@@ -12,7 +12,12 @@ runs; ``"clocks"`` compiles the same source with ``-DDSST_STAGE_CLOCKS``
 ``csrc/cover.cu`` for K3) into a library of its own name, which only the
 stage breakdowns load.  ``probe_uint16`` and ``probe_cover`` are the
 ports of the two Mosaic probes (``probes/``).
-Nothing here runs when the module is imported.
+Nothing here runs when the module is imported.  Building and loading are
+serialised by one process-wide lock: a server launches kernels from its
+device loop and from its request threads, and the first use of a library
+may come from two of them at once.  Every failure to build, load or
+launch a kernel raises :class:`KernelError`, and a failed build is not
+tried again in the same process.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -40,6 +46,17 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[tuple[str, str], ctypes.CDLL] = {}
+# A library's path -> why it could not be built or loaded.
+_failed: dict[Path, str] = {}
+# Re-entrant: ``load`` holds it across its own call of ``build``.
+_build_lock = threading.RLock()
+
+
+class KernelError(RuntimeError):
+    """A kernel of this package failed to build, load or launch.  No retry
+    and no other step implementation can mend that, so the serving layers
+    classify it as permanent (``serving.faults``) and never fall back to a
+    plain version to hide it."""
 
 
 def nvcc_path() -> str:
@@ -50,7 +67,7 @@ def nvcc_path() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels of "
         "distributed_sudoku_solver_tpu_torch cannot be built"
     )
@@ -86,7 +103,13 @@ def ptxas_report(name: str, variant: str = "") -> str:
 def build(targets=TARGETS) -> dict[str, float]:
     """Compile every ``(source, variant)`` target not built yet, all nvcc
     processes started together; returns each library's seconds from the
-    start to its own nvcc's exit."""
+    start to its own nvcc's exit.  Temporary outputs are named by process
+    and thread, so no two threads ever write one file."""
+    with _build_lock:
+        return _build(targets)
+
+
+def _build(targets) -> dict[str, float]:
     todo = [t for t in targets if not lib_path(*t).exists()]
     if not todo:
         return {}
@@ -95,7 +118,8 @@ def build(targets=TARGETS) -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name, variant in todo:
-        tmp = lib_path(name, variant).with_suffix(f".tmp{os.getpid()}.so")
+        tmp = lib_path(name, variant).with_suffix(
+            f".tmp{os.getpid()}-{threading.get_ident()}.so")
         log = tmp.with_suffix(".log")
         cmd = [nvcc, *_flags(variant), "-I", str(CSRC_DIR), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
@@ -119,17 +143,29 @@ def build(targets=TARGETS) -> dict[str, float]:
         lib_path(name, variant).with_suffix(".ptxas.txt").write_text(out)
         os.replace(tmp, lib_path(name, variant))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return seconds
 
 
 def load(name: str, variant: str = "") -> ctypes.CDLL:
-    """The loaded library of ``(name, variant)``, built first if needed."""
+    """The loaded library of ``(name, variant)``, built first if needed;
+    one build and one load however many threads ask at once, and a
+    library that failed raises :class:`KernelError` again at once."""
     lib = _loaded.get((name, variant))
     if lib is None:
-        build(((name, variant),))
-        lib = ctypes.CDLL(str(lib_path(name, variant)))
-        _loaded[name, variant] = lib
+        with _build_lock:
+            lib = _loaded.get((name, variant))
+            if lib is None:
+                path = lib_path(name, variant)
+                if path in _failed:
+                    raise KernelError(_failed[path])
+                try:
+                    build(((name, variant),))
+                    lib = ctypes.CDLL(str(path))
+                except (KernelError, OSError) as e:
+                    _failed[path] = f"{name}.cu {variant}: {e}"
+                    raise KernelError(_failed[path]) from e
+                _loaded[name, variant] = lib
     return lib
 
 
@@ -205,4 +241,4 @@ def ptxas_kernels(report: str) -> list[dict]:
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch function."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise KernelError(f"{what}: CUDA error {err} at launch")

@@ -407,6 +407,30 @@ def fused_lanes(n_lanes: int, n: int, stack_slots: int) -> int:
     return -(-n_lanes // 128) * 128
 
 
+# K2 takes its lane count as a C ``int`` and sizes its grid as ``(lanes + 3)
+# / 4`` in ``int`` (``csrc/fused_step.cu``, 4 warps a block): the widest
+# 128-multiple of lanes for which neither overflows.
+_K2_MAX_LANES = ((2**31 - 1) - 3) // 128 * 128
+
+
+def max_fused_lanes(n: int, stack_slots: int) -> int:
+    """Widest lane count one K2 flight serves at ``(n, stack_slots)``; 0 =
+    none (:func:`fused_lanes` raises for that shape).
+
+    The JAX package's counterpart returns the scoped-VMEM boundaries that
+    Mosaic's compiler was measured to admit per (geometry, stack depth),
+    and 0 past them.  K2 keeps no stack on chip: each lane's stack lives in
+    device memory and one warp serves one lane, so the only cap is the
+    range of the kernel's ``int`` lane count, the same at every geometry
+    and depth it admits.  The serving engine therefore never splits or
+    downgrades a fused group on a shape the TPU would have refused."""
+    try:
+        fused_lanes(1, n, stack_slots)
+    except ValueError:
+        return 0
+    return _K2_MAX_LANES
+
+
 def _fused_live(fs) -> torch.Tensor:
     n_jobs = fs.solved.shape[0]
     job_safe = torch.clamp(fs.job, 0, n_jobs - 1).long()
@@ -480,21 +504,23 @@ def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=Non
     )
 
 
-def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit: int,
+def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
                rounds_fn=None) -> FusedFrontier:
     """Dispatch fused rounds until nothing is live or ``steps`` reaches
-    ``limit`` (overshooting by up to ``fused_steps - 1``, as in JAX).
-    One host sync per dispatch reads the loop condition.  ``rounds_fn``
-    swaps the round kernel (see :func:`_fused_round`)."""
-    while bool(_fused_live(fs).any() & (fs.steps < limit)):
+    ``limit`` or ``config.max_steps`` (overshooting by up to
+    ``fused_steps - 1``, as in JAX).  ``limit`` is a host int or a 0-d
+    tensor on the frontier's device; both limits are compared on the
+    device.  One host sync per dispatch reads the loop condition, the
+    first before the first dispatch.  ``rounds_fn`` swaps the round
+    kernel (see :func:`_fused_round`)."""
+    while bool(_fused_live(fs).any() & (fs.steps < limit) & (fs.steps < config.max_steps)):
         fs = _fused_round(fs, geom, config, rounds_fn)
     return fs
 
 
-def _advance_fused(state, step_limit: int, geom: Geometry, config):
+def _advance_fused(state, step_limit, geom: Geometry, config):
     config = config.with_fused_steps(FUSED_STEPS_DEVICE)
-    limit = min(int(step_limit), config.max_steps)
-    return fused_to_frontier(_run_fused(frontier_to_fused(state), geom, config, limit))
+    return fused_to_frontier(_run_fused(frontier_to_fused(state), geom, config, step_limit))
 
 
 def advance_frontier_fused(state, step_limit, geom: Geometry, config):
@@ -505,8 +531,14 @@ def advance_frontier_fused(state, step_limit, geom: Geometry, config):
 
 def advance_frontier_fused_status(state, steps_delta, geom: Geometry, config):
     """Fused twin of ``utils.checkpoint.advance_frontier_status``: advance
-    by at most ``steps_delta`` more rounds; returns ``(state, status)``."""
-    new = _advance_fused(state, int(state.steps) + int(steps_delta), geom, config)
+    by at most ``steps_delta`` more rounds; returns ``(state, status)``.
+    The limit is formed on the device (``state.steps + steps_delta``), so
+    the host does not read the steps for it; the loop condition is still
+    read before the first dispatch (:func:`_run_fused`), so this chunk is
+    not enqueued before the previous one has finished (the device-side
+    loop of ROADMAP A8 removes that read).  ``status`` is a fresh tensor
+    that later dispatches never write."""
+    new = _advance_fused(state, state.steps + steps_delta, geom, config)
     return new, chunk_status(state.steps, state.lane_rounds, new)
 
 

@@ -636,9 +636,12 @@ def run_frontier(
     step_limit: int | torch.Tensor | None = None,
 ) -> Frontier:
     """Drive steps until every job resolves or ``steps`` reaches the limit
-    (``config.max_steps`` at most).  One host sync per round."""
-    limit = config.max_steps if step_limit is None else min(int(step_limit), config.max_steps)
-    while bool(frontier_live(state).any() & (state.steps < limit)):
+    (``config.max_steps`` at most).  One host sync per round reads the loop
+    condition; both limits are compared on the device, so a tensor
+    ``step_limit`` is never read by the host on its own."""
+    limit = config.max_steps if step_limit is None else step_limit
+    while bool(frontier_live(state).any() & (state.steps < limit)
+               & (state.steps < config.max_steps)):
         state = frontier_step(state, problem, config)
     return state
 

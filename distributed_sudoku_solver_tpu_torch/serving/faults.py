@@ -39,7 +39,9 @@ cache stays warm):
   probes), closed again on the first successfully consumed chunk.
 
 Import discipline: stdlib plus the (itself stdlib-only) ``obs.lockdep``
-named-lock factory — the declared carve-out in ``manifest.LAYERS`` that
+named-lock factory and ``ops.cuda_build.KernelError`` (a kernel that
+cannot build, load or launch is permanent: no retry or fallback rung
+may hide it) — the declared carve-out in ``manifest.LAYERS`` that
 puts this module's two locks in the one deadck/lockdep hierarchy.
 Engine, scheduler, bulk, and cluster all import this module; it must
 never import them back.
@@ -56,6 +58,7 @@ import zlib
 from typing import Callable, Iterable, Optional
 
 from distributed_sudoku_solver_tpu_torch.obs import lockdep
+from distributed_sudoku_solver_tpu_torch.ops.cuda_build import KernelError
 
 # -- taxonomy -----------------------------------------------------------------
 
@@ -119,6 +122,7 @@ _PERMANENT_TYPES = (
     IndexError,
     AssertionError,
     NotImplementedError,
+    KernelError,
 )
 # Error-string prefixes for the same judgement once an exception has been
 # flattened to ``f"{type(e).__name__}: {e}"`` (engine job errors, cluster

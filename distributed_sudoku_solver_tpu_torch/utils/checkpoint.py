@@ -61,12 +61,16 @@ def advance_frontier_status(
     state: Frontier, steps_delta, geom: Geometry, config: SolverConfig
 ):
     """One chunk: advance by at most ``steps_delta`` more rounds; returns
-    ``(new_state, packed status)`` (``ops.frontier.chunk_status``)."""
+    ``(new_state, packed status)`` (``ops.frontier.chunk_status``).  The
+    limit is formed on the device, so the host does not read the steps
+    for it; ``run_frontier`` still reads its loop condition before the
+    first round (ROADMAP A8).  ``status`` is a fresh tensor that later
+    chunks never write."""
     new = run_frontier(
         state,
         sudoku_csp(geom, config),
         config,
-        step_limit=int(state.steps) + int(steps_delta),
+        step_limit=state.steps + steps_delta,
     )
     return new, chunk_status(state.steps, state.lane_rounds, new)
 

@@ -80,6 +80,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "BAD []" in out.stdout
 
 
+def test_serving_http_import_leaves_jax_out():
+    """The HTTP node pulls in the whole serving stack (engine, scheduler,
+    megastep, profiling); none of it brings JAX along."""
+    code = ("import sys\n"
+            "import distributed_sudoku_solver_tpu_torch.serving.http as h\n"
+            "assert h.SolverEngine and h.EngineSaturated\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_port_file_imports_jax(path):
     tree = ast.parse(path.read_text())
