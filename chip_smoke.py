@@ -8,6 +8,7 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py --times        # phases 1, 3 and K1's / K2's / K3's device times only
     python3 chip_smoke.py --bulk         # phases 1, 3 and bulk passes at inflight 3, 1, 1, 3 only
     python3 chip_smoke.py --serving      # phases 1-3, 12 and the serving phase (17) only
+    python3 chip_smoke.py --frontdoor    # phases 1-3 and the front-door phase (18) only
 
 Phases, each of which must pass (nothing is caught and skipped):
 
@@ -58,7 +59,7 @@ Phases, each of which must pass (nothing is caught and skipped):
    run of each; then n-queens 14 once more under torch.profiler;
 10. the composite cover path (``step_impl="xla"``): n-queens 12 must count
    14,200, and each HARD_9 board solved through ``sudoku_cover`` must
-   decode to the copied oracle's solution;
+   decode to the native oracle's solution;
 11. K2 with each scored branch head (``head:minrem``, ``head:cw-slack``,
    ``head:mlp``) against its plain version at phase 5's shape (count_mode
    off), all 13 outputs bit-equal; the kernel's device time
@@ -115,12 +116,33 @@ Phases, each of which must pass (nothing is caught and skipped):
    Printed: requests, requests/s and p50 / p95 / p99 ms per route, the
    engines' chunk counts and walls, host syncs per chunk per route (torch's
    sync debug mode, one route at a time);
-18. the seconds the script took, the build's among them, then one JSON
+18. the front door and the portfolio over HTTP.  Node D is node F plus
+   ``FrontDoorConfig()``; the native oracle must have built (its build
+   seconds printed).  Pass A: 1,024 unique 9x9 boards carved with
+   ``make_puzzle(unique=True)`` (seeds 1000.., clue targets 22-30) and
+   HARD_9 from 32 clients honouring 429 and Retry-After, each 201 equal to
+   the native oracle's unique solution; pass B: each board under one
+   seeded ``random_transform``, each answer the transformed solution, the
+   cache answering at least every cacheable pass-A verdict; 8 boards made
+   unsat by a conflicting given answer 422, and their transforms 422 from
+   the negative cache; 16 carved 16x16 boards answered validly and
+   counted uncacheable; 8 ``"portfolio": true`` requests (HARD_9 and the
+   five pass-A boards of highest probe score), each the oracle's solution;
+   every route (cache, propagation, native, device) used, K2 launched
+   (counted from zero), every fallback counter 0, Prometheus promck-clean.
+   Then ``race_cover(nqueens_cover(12))`` on the card must count 14,200,
+   complete; ``solve_file`` on phase 3's boards written as lines, every
+   output line valid and keeping its givens, none unsat, K2 launched; and
+   ``StandaloneNode()`` must build a front door on CUDA and answer two
+   boards.  Printed: requests/s per pass, per route the count and the
+   ``frontdoor_*_ms`` histograms' p50 / p95 / p99, the portfolio walls and
+   winners, the cover race's winner and wall, ``solve_file``'s boards/s;
+19. the seconds the script took, the build's among them, then one JSON
    line ``{"kernels": [...]}`` (launches on the paths, times at the path's
    shape, the plain version's time, the bound; K2 once more for each
    head, P16 once per mask width; K1's and K2's launches include the
-   serving phase's);
-19. the last line, ``{"ok": true, "device": {...}}``.
+   serving phase's, K2's the front-door phase's too);
+20. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -153,7 +175,7 @@ SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, com
              cover_fanout_steps=160, cover_composite_lanes=1024, head_boards=32768,
              flight_extra=2, snapshot_boards=4096, snapshot_chunk=8, probe_boards=65536,
              probe_iters=16, serving_mass=1024, serving_clients=32, serving_burst=200,
-             serving_static=256, serving_bulk=4096)
+             serving_static=256, serving_bulk=4096, frontdoor_unique=1024, frontdoor_unsat=8)
 
 HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
 
@@ -180,13 +202,16 @@ _HARD9_SOLUTIONS: list = []
 
 
 def hard9_solutions():
-    """HARD_9's solutions from the copied oracle, computed once (the pure
-    Python search takes most of a minute on HARD_9[2])."""
+    """HARD_9's solutions from the native oracle, computed once (the copied
+    pure-Python search, which the tests hold it equal to, takes most of a
+    minute on HARD_9[2])."""
     if not _HARD9_SOLUTIONS:
-        from distributed_sudoku_solver_tpu_torch.utils.oracle import solve_oracle
+        from distributed_sudoku_solver_tpu_torch import native
         from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
-        _HARD9_SOLUTIONS.extend(solve_oracle(h) for h in HARD_9)
+        if not native.available():
+            raise AssertionError("the native oracle did not build (g++)")
+        _HARD9_SOLUTIONS.extend(native.solve(h)[0] for h in HARD_9)
     return _HARD9_SOLUTIONS
 
 
@@ -388,13 +413,21 @@ def phase_build() -> float:
     """Build every library (one nvcc each, all at once) and print ptxas's
     registers, spills and stack frame per kernel instantiation, with the
     warps an SM holds at that register count (4-warp blocks for K1 and K2,
-    8 for K3; 64 warps at most).  No instantiation may spill."""
+    8 for K3; 64 warps at most).  No instantiation may spill.  The native
+    oracle (``g++``) builds beside them, on a thread of its own."""
+    from distributed_sudoku_solver_tpu_torch import native
     from distributed_sudoku_solver_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
+    gxx = threading.Thread(target=native.available, name="native-build")
+    gxx.start()
     seconds = cuda_build.build(cuda_build.TARGETS + (("fused_step", "clocks"),
                                                       ("cover", "clocks")))
+    gxx.join()
     build_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("the native oracle did not build (g++)")
+    seconds["native csp (g++)"] = native.build_seconds or 0.0
     log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
         f"total {build_s:.2f} s")
     spills = []
@@ -1021,7 +1054,7 @@ def phase_cover_profile(dev) -> None:
 
 def phase_cover_composite(sizes, dev):
     """The composite cover path: an n-queens 12 count and the HARD_9 boards
-    solved as exact cover, each against the copied oracle."""
+    solved as exact cover, each against the native oracle."""
     import numpy as np
     import torch
 
@@ -1909,6 +1942,232 @@ def phase_serving(corpus, minrem_nodes, device, sizes, dev):
     return {"K2": launches_f, "K1": launches_c}
 
 
+# -- phase 18: the front door and the portfolio over HTTP ----------------------
+
+
+def _expect_solutions(results, want, what: str) -> None:
+    """Every answer 201 with exactly the expected (unique) solution."""
+    import numpy as np
+
+    for i, (r, w) in enumerate(zip(results, want)):
+        if r[0] != 201 or not np.array_equal(np.asarray(r[2]["solution"]), w):
+            raise AssertionError(f"{what} #{i}: status {r[0]}, not the oracle's solution: "
+                                 f"{str(r[2])[:200]}")
+
+
+def phase_frontdoor(corpus, device, sizes, dev) -> dict:
+    """Node D: node F of phase 17 plus the front door, behind HTTP.  Unique
+    carved boards (pass A), their transforms (pass B, the cache), unsat
+    boards and their transforms (422, the negative cache), 16x16 boards
+    (uncacheable), portfolio races, the cover race and ``solve_file``.
+    Returns K2's launches on node D's traffic and in ``solve_file``."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch import native
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, SUDOKU_16
+    from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
+    from distributed_sudoku_solver_tpu_torch.obs import promck
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.serving.engine import SolverEngine
+    from distributed_sudoku_solver_tpu_torch.serving.frontdoor.canonical import (
+        apply_transform,
+        canonicalize,
+        random_transform,
+    )
+    from distributed_sudoku_solver_tpu_torch.serving.frontdoor.router import (
+        FrontDoorConfig,
+        probe_propagate,
+    )
+    from distributed_sudoku_solver_tpu_torch.serving.http import ApiServer, StandaloneNode
+    from distributed_sudoku_solver_tpu_torch.serving.megastep import MegastepConfig
+    from distributed_sudoku_solver_tpu_torch.serving.portfolio import race_cover
+    from distributed_sudoku_solver_tpu_torch.serving.scheduler import ResidentConfig
+    from distributed_sudoku_solver_tpu_torch.utils import dataset
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import is_valid_solution
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, make_puzzle
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native oracle did not build (g++)")
+    log(f"[18] native library {native.lib_path().name}: "
+        + (f"built in {native.build_seconds:.3f} s in this run (phase 2)"
+           if native.build_seconds is not None else "found built"))
+    hard9 = [np.asarray(h, np.int32) for h in HARD_9]
+    carved = [make_puzzle(SUDOKU_9, 1000 + i, n_clues=22 + i % 9).astype(np.int32)
+              for i in range(sizes["frontdoor_unique"])]
+    boards = carved + hard9
+    want = [native.solve(b)[0] for b in boards]
+    if any(w is None or native.count_solutions(b, limit=2) != 1 for b, w in zip(boards, want)):
+        raise AssertionError("a pass-A board is not a unique puzzle")
+    log(f"[18] corpus: {len(carved)} unique carved 9x9 boards (seeds 1000.., clue targets "
+        f"22-30) + HARD_9, oracle solutions, in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(18)
+    trs = [random_transform(SUDOKU_9, rng) for _ in boards]
+    unsat = []
+    for b in carved[:sizes["frontdoor_unsat"]]:
+        bad = b.copy()
+        r = int(np.flatnonzero((bad == 0).any(1) & (bad > 0).any(1))[0])
+        c = int(np.flatnonzero(bad[r] == 0)[0])
+        bad[r, c] = bad[r][bad[r] > 0][0]  # a given of the same row: a conflict
+        unsat.append(bad)
+    b16 = [make_puzzle(SUDOKU_16, 200 + i, unique=False).astype(np.int32) for i in range(16)]
+    # The front door's two host tiers, one thread, no server: their cost per
+    # board on this host (the passes below pay them under 32 clients).
+    t1 = time.perf_counter()
+    scores = [probe_propagate(b, SUDOKU_9).score for b in carved]
+    probe_ms = (time.perf_counter() - t1) * 1e3 / len(carved)
+    top5 = [carved[i] for i in np.argsort(scores)[::-1][:5]]
+    t1 = time.perf_counter()
+    cacheable = sum(canonicalize(b, SUDOKU_9) is not None for b in boards)
+    canon_ms = (time.perf_counter() - t1) * 1e3 / len(boards)
+    log(f"[18] host cost per 9x9 board, one thread: canonical form {canon_ms:.3f} ms, "
+        f"probe {probe_ms:.3f} ms")
+
+    eng = SolverEngine(config=SolverConfig(step_impl="fused"), max_batch=256, chunk_steps=64,
+                       resident=ResidentConfig(), megastep=MegastepConfig(),
+                       frontdoor=FrontDoorConfig(), device=dev).start()
+    api = ApiServer(StandaloneNode(eng, address="127.0.0.1:d"), host="127.0.0.1", port=0,
+                    solve_timeout_s=600).start()
+    passes, routes = {}, {}
+    try:
+        if not eng.frontdoor.native_available:
+            raise AssertionError("node D's front door sees no native oracle")
+        fd = eng.frontdoor
+        torch.cuda.synchronize()
+        cuda_step.fused_rounds_cuda.launches = 0
+        res_a, wall_a = _post_all(api.port, boards, threads=sizes["serving_clients"])
+        _expect_solutions(res_a, want, "pass A")
+        passes["A"] = len(boards) / wall_a
+        cache_before = fd.metrics()["routes"]["cache"]
+        moved = [apply_transform(b, tr) for b, tr in zip(boards, trs)]
+        res_b, wall_b = _post_all(api.port, moved, threads=sizes["serving_clients"])
+        _expect_solutions(res_b, [apply_transform(w, tr) for w, tr in zip(want, trs)], "pass B")
+        passes["B"] = len(moved) / wall_b
+        hits_b = fd.metrics()["routes"]["cache"] - cache_before
+        if hits_b < cacheable:
+            raise AssertionError(f"pass B: {hits_b} cache answers < {cacheable} cacheable "
+                                 f"pass-A verdicts")
+        log(f"[18] pass A: {len(boards)} requests, {passes['A']:.1f} requests/s; pass B "
+            f"(each board under one random transform): {passes['B']:.1f} requests/s, "
+            f"{hits_b} answered from the cache (>= {cacheable} cacheable)")
+        neg_before = fd.cache.metrics()["negative_hits"]
+        for what, group in (("unsat", unsat),
+                            ("unsat transformed", [apply_transform(b, trs[i])
+                                                   for i, b in enumerate(unsat)])):
+            res_u, _ = _post_all(api.port, group, threads=8)
+            if any(r[0] != 422 for r in res_u):
+                raise AssertionError(f"{what}: {[r[0] for r in res_u]} (want 422 each)")
+        neg = fd.cache.metrics()["negative_hits"] - neg_before
+        if neg < len(unsat):
+            raise AssertionError(f"negative cache answered {neg} < {len(unsat)} repeats")
+        unc_before = fd.metrics()["uncacheable"]
+        res_16, _ = _post_all(api.port, b16, threads=16)
+        for b, r in zip(b16, res_16):
+            sol = np.asarray(r[2].get("solution", []))
+            if r[0] != 201 or not is_valid_solution(sol, SUDOKU_16) or not np.array_equal(
+                    sol[b > 0], b[b > 0]):
+                raise AssertionError(f"16x16: status {r[0]}, invalid answer")
+        if fd.metrics()["uncacheable"] - unc_before != len(b16):
+            raise AssertionError("16x16 boards were not counted uncacheable")
+        log(f"[18] unsat: {len(unsat)} boards 422, their transforms 422 from the negative "
+            f"cache ({neg} negative hits); 16x16: {len(b16)} answered, uncacheable")
+        folio = hard9 + top5
+        folio_want = [native.solve(b)[0] for b in folio]
+        walls, winners = [], []
+        for b, w in zip(folio, folio_want):
+            t1 = time.perf_counter()
+            st, _, body = _http(api.port, "/solve", {"sudoku": b.tolist(), "portfolio": True})
+            walls.append((time.perf_counter() - t1) * 1e3)
+            if st != 201 or not np.array_equal(np.asarray(body["solution"]), w):
+                raise AssertionError(f"portfolio: status {st}, not the oracle's solution")
+            winners.append(body["strategy"])
+        log(f"[18] portfolio: {len(folio)} races (HARD_9 + the 5 highest probe scores "
+            f"{sorted(scores)[::-1][:5]}), walls ms {[round(x, 3) for x in walls]}, winning "
+            f"strategies {winners}")
+        torch.cuda.synchronize()
+        launches_d = cuda_step.fused_rounds_cuda.launches
+        m = eng.metrics()
+        _zero_breakers(m)
+        fdm = m["frontdoor"]
+        if min(fdm["routes"].values()) <= 0:
+            raise AssertionError(f"a front-door route went unused: {fdm['routes']}")
+        if launches_d <= 0:
+            raise AssertionError("node D launched K2 no time")
+        st, _, text = _http(api.port, "/metrics?format=prometheus")
+        errors = promck.check_text(text)
+        if st != 200 or errors:
+            raise AssertionError(f"prometheus exposition: {st} {errors[:5]}")
+        for name, r in m.get("resident", {}).items():
+            log(f"[18] resident {name}: chunks {r['chunks']}, admitted {r['admitted']}, "
+                f"rejected {r['rejected']}, dispatch wall {r.get('dispatch_wall_ms')}, "
+                f"admission wait {r.get('admission_wait_ms')}")
+        for name in ("cache", "propagation", "native", "device"):
+            h = eng.hist[f"frontdoor_{name}_ms"]
+            routes[name] = dict(count=fdm["routes"][name], hist_samples=len(h),
+                                **{f"p{q}_ms": h.quantile(q / 100) for q in (50, 95, 99)})
+            log(f"[18] route {name}: {routes[name]}")
+        log(f"[18] node D front door: probe {fdm['probe']}, cache {fdm['cache']}, "
+            f"uncacheable {fdm['uncacheable']}, native fallback wins "
+            f"{fdm['native_fallback_wins']}; K2 launches {launches_d}; fallbacks all 0; "
+            f"prometheus clean")
+    finally:
+        api.stop()
+        eng.stop(timeout=10)
+
+    t1 = time.perf_counter()
+    cover = race_cover(nqueens_cover(12), timeout=300.0, device=dev)
+    cover_wall = time.perf_counter() - t1
+    if cover.count != COVER_COUNTS["nqueens12"] or not cover.complete:
+        raise AssertionError(f"cover race: {cover}")
+    log(f"[18] cover race n-queens 12: {cover.count} solutions, complete, winner "
+        f"{cover.winner}, {cover.nodes} nodes, wall {cover_wall * 1e3:.3f} ms")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "boards.txt"), os.path.join(tmp, "solved.txt")
+        dataset.save_boards(src, corpus)
+        torch.cuda.synchronize()
+        cuda_step.fused_rounds_cuda.launches = 0
+        t1 = time.perf_counter()
+        stats = dataset.solve_file(src, out, SUDOKU_9, device=dev)
+        file_wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches_f = cuda_step.fused_rounds_cuda.launches
+        sols = dataset.load_boards(out, SUDOKU_9)
+    if stats["total"] != len(corpus) or stats["solved"] != len(corpus) or stats["unsat"] or \
+            len(sols) != len(corpus):
+        raise AssertionError(f"solve_file: {stats}, {len(sols)} lines")
+    check_solutions(corpus, sols, np.ones(len(sols), bool), np.zeros(len(sols), bool),
+                    "solve_file")
+    if launches_f <= 0:
+        raise AssertionError("solve_file launched K2 no time")
+    log(f"[18] solve_file: {len(corpus)} boards in {file_wall:.3f} s, "
+        f"{len(corpus) / file_wall:.0f} boards/s, {stats}; K2 launches {launches_f}")
+
+    node = StandaloneNode()
+    try:
+        if node.engine.frontdoor is None or node.engine.device.type != "cuda":
+            raise AssertionError("StandaloneNode() built no front door on CUDA")
+        api = ApiServer(node, host="127.0.0.1", port=0, solve_timeout_s=600).start()
+        try:
+            res, _ = _post_all(api.port, boards[:2], threads=2)
+            _expect_solutions(res, want[:2], "default node")
+        finally:
+            api.stop()
+    finally:
+        node.engine.stop(timeout=10)
+    log("[18] StandaloneNode(): front door on CUDA, two boards answered")
+    log(f"[18] {device['smi']}")
+    log(json.dumps({"frontdoor": {
+        "requests_per_s": passes, "routes": routes, "host_ms_per_board": {
+            "canonical": canon_ms, "probe": probe_ms}, "portfolio_ms": walls,
+        "portfolio_winners": winners, "cover_race": {"winner": cover.winner,
+                                                     "wall_ms": cover_wall * 1e3},
+        "solve_file_boards_per_s": len(corpus) / file_wall, "card": device["smi"]}}))
+    return {"K2": launches_d + launches_f}
+
+
 def kernel_row(key: str, suffix: str = "", **fields) -> dict:
     name, source, replaces = KERNELS[key]
     return dict(name=name + suffix, route="cuda",
@@ -1937,6 +2196,8 @@ def main(argv=None) -> int:
     ap.add_argument("--serving", action="store_true",
                     help="phases 1-3, 12 (for the corpus's hardest boards) and the serving "
                          "phase only (no result line)")
+    ap.add_argument("--frontdoor", action="store_true",
+                    help="phases 1-3 and the front-door phase (18) only (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -1968,6 +2229,9 @@ def main(argv=None) -> int:
         _, minrem_nodes = phase_heads_main(corpus, SIZES, dev)
         phase_serving(corpus, minrem_nodes, device, SIZES, dev)
         return 0
+    if args.frontdoor:
+        phase_frontdoor(corpus, device, SIZES, dev)
+        return 0
     k1 = phase_k1(corpus, SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
     phase_breakdown(corpus, SIZES, dev)
@@ -1989,11 +2253,12 @@ def main(argv=None) -> int:
     p16 = phase_p16(SIZES, dev)
     pcv = phase_pcv(SIZES, dev)
     serving = phase_serving(corpus, minrem_nodes, device, SIZES, dev)
-    log(f"[18] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
+    frontdoor = phase_frontdoor(corpus, device, SIZES, dev)
+    log(f"[19] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
         f"{build_s:.1f} s")
     kernels = [
         kernel_row("K1", launches=comp_launches["K1"] + serving["K1"], **k1),
-        kernel_row("K2", launches=main_launches["K2"] + serving["K2"], **k2),
+        kernel_row("K2", launches=main_launches["K2"] + serving["K2"] + frontdoor["K2"], **k2),
         kernel_row("K3", launches=sum(cover_launches.values()), max_abs_err=k3_err,
                    **k3_rows["pentomino6x10"]),
     ]

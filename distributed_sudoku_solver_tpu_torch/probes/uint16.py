@@ -146,9 +146,10 @@ def fixpoint_probe(cand_t: torch.Tensor, max_sweeps: int = 64) -> torch.Tensor:
 def probe_boards(batch: int, seed: int = 7, n_clues: int = 24, distinct: int = 512) -> torch.Tensor:
     """The probe's input: ``distinct`` carved ``n_clues``-clue 9x9 boards
     (seeds ``seed``..), tiled to ``batch``, encoded boards-last int32
-    ``[9, 9, batch]``.  The boards are carved with ``unique=False`` (the
-    JAX probe checked uniqueness with its native oracle, which the port
-    does not have), so each keeps its parent solution."""
+    ``[9, 9, batch]``.  The boards are carved with ``unique=False``, so each
+    keeps its parent solution; the JAX probe carves unique boards
+    (``puzzle_batch``), which the port's native oracle now also makes at
+    speed (ROADMAP C-watch)."""
     base = np.stack([make_puzzle(SUDOKU_9, seed + i, n_clues=n_clues, unique=False)
                      for i in range(min(distinct, batch))])
     grids = base[np.arange(batch) % len(base)].astype(np.int32)

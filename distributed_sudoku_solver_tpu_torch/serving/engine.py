@@ -38,10 +38,14 @@ Device seams against the JAX engine:
   an asynchronous copy on CUDA), so an upload between dispatches does not
   wait for the device.
 
+With ``frontdoor=FrontDoorConfig()`` eligible submits cross the front door
+(``serving/frontdoor``) first, as in the JAX engine: the canonical cache,
+the propagation probe, the native race (``serving/portfolio.race_native``),
+and only the hard tail reaches a device flight.
+
 Left out, each for a later item of the roadmap: the compile watch and its
 cost plane (A14: ``/metrics`` has no ``compile`` or ``cost`` section, as a
-JAX engine without a watch installed), the front door (A9: ``frontdoor=``
-must be ``None``) and the mesh-resident flight (A12).
+JAX engine without a watch installed) and the mesh-resident flight (A12).
 """
 
 from __future__ import annotations
@@ -175,11 +179,22 @@ class Job:
     bisect_token: Optional[int] = None
     # Recorder-clock submit time (obs/trace.py), set only when tracing.
     trace_t0: Optional[float] = None
-    # The front door's route and difficulty probe (ROADMAP A9), journaled
-    # by the ordering trace (obs/ordertrace.py); unset without one.
+    # The front door's route ('cache' | 'propagation' | 'native' |
+    # 'device'; None = never crossed it) and difficulty probe, journaled by
+    # the ordering trace (obs/ordertrace.py); -1 = never probed.
     route: Optional[str] = None
     probe_score: int = -1
     probe_empties: int = -1
+    # Resolution hook: called with the verdict fields set, BEFORE the done
+    # event (the front door's cache fill: a waiter that resubmits the
+    # moment it wakes must see the entry).  Fires at most once; its
+    # exceptions are logged, never propagated.
+    on_resolve: Optional[Callable[["Job"], None]] = None
+    # Shadow jobs are accounting-invisible: resolution sets their verdict,
+    # fires the hook and the done event, and touches no counter, histogram
+    # or SLO sample.  The native race submits its device fallback as one,
+    # so the user's one request is counted once, by the race's own hook.
+    shadow: bool = False
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self.done.wait(timeout)
@@ -262,10 +277,6 @@ class SolverEngine:
         journal=None,  # Optional[serving.journal.Journal]
         device=None,
     ):
-        if frontdoor is not None:
-            # The front door (serving/frontdoor) is ROADMAP A9; it needs the
-            # native oracle (A15) for its easy-tier race.
-            raise ValueError("frontdoor= is not ported yet (ROADMAP A9); pass None")
         self.device = resolve_device(device)
         self.config = config
         self.max_batch = max_batch
@@ -366,6 +377,13 @@ class SolverEngine:
         # Idempotent-resubmit registry (insertion-ordered, bounded).
         self._jobs_by_uuid: "dict[str, Job]" = {}  # lockck: guard(_lock)
         self.trace_node: Optional[str] = None
+        # The front door (serving/frontdoor): built last, so it sees a
+        # fully wired engine (it probes native.available() once, here).
+        self.frontdoor = None
+        if frontdoor is not None:
+            from distributed_sudoku_solver_tpu_torch.serving.frontdoor.router import FrontDoor
+
+            self.frontdoor = FrontDoor(self, frontdoor)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "SolverEngine":
@@ -401,6 +419,8 @@ class SolverEngine:
     def _journal_resolved(self, job: Job) -> None:
         """Discharge the job's WAL entry on a real verdict; error terminals
         stay accepted-only (replayed by ``recover``)."""
+        if job.shadow:
+            return
         if job.error is not None:
             with self._lock:
                 self._jobs_by_uuid.pop(job.uuid, None)
@@ -420,10 +440,16 @@ class SolverEngine:
 
     def recover(self) -> int:
         """Boot-time journal replay: re-submit every accepted entry with no
-        resolution through the normal submit seam.  Returns the count."""
+        resolution through the normal submit seam (front door included),
+        after warming the front door's cache from the drain-time snapshot.
+        Returns the number of jobs replayed."""
         jr = self._journal()
         if jr is None:
             return 0
+        if self.frontdoor is not None:
+            warmed = self.frontdoor.cache.import_hot(jr.load_frontdoor())
+            if warmed:
+                _LOG.info("[engine] front-door cache restored warm: %d entries", warmed)
         n = 0
         for ev in jr.unresolved():
             grid = ev.get("grid")
@@ -453,7 +479,8 @@ class SolverEngine:
         """Graceful drain: serving -> draining -> drained.  New submits
         raise :class:`EngineDraining`; unstarted work is offered to
         ``handoff`` or left to the journal's replay; in-flight flights
-        finish (bounded by ``timeout``); the journal syncs.  Idempotent.
+        finish (bounded by ``timeout``); the front door's hot cache entries
+        persist beside the WAL and the journal syncs.  Idempotent.
         Returns the ``/admin/drain`` body."""
         with self._lock:
             if self._lifecycle != "serving":
@@ -478,14 +505,14 @@ class SolverEngine:
         handoffs = journaled = 0
         for j in detached:
             shipped = False
-            if handoff is not None and j.roots is None:
+            if handoff is not None and not j.shadow and j.roots is None:
                 try:
                     shipped = bool(handoff(j))
                 except Exception:  # noqa: BLE001 - a dead peer must not sink the drain
                     _LOG.exception("[engine] drain handoff failed for %s", j.uuid)
             if shipped:
                 handoffs += 1
-                if jr is not None:
+                if jr is not None and not j.shadow:
                     jr.record_resolved(j.uuid, {"handoff": True})
                 j.error = "draining: handed off to peer"
             else:
@@ -499,6 +526,8 @@ class SolverEngine:
             self._drain_wait.wait(0.02)
         leftover = self.busy_depth()
         if jr is not None:
+            if self.frontdoor is not None:
+                jr.save_frontdoor(self.frontdoor.cache.export_hot())
             jr.sync_now()
         finished = max(0, started - len(detached) - leftover)
         with self._lock:
@@ -527,9 +556,20 @@ class SolverEngine:
         config: Optional[SolverConfig] = None,
         deadline_s: Optional[float] = None,
         saturation: str = "fallback",
+        frontdoor: bool = True,
+        shadow: bool = False,
         latency: Optional[bool] = None,
     ) -> Job:
         """Enqueue one job.
+
+        With a front door installed (``SolverEngine(frontdoor=...)``),
+        eligible jobs cross it first: cache hits and propagation verdicts
+        come back resolved, easy boards race the native DFS
+        (``serving/portfolio.race_native``), and only the hard tail reaches
+        a device flight.  ``frontdoor=False`` is the per-call bypass (the
+        race's own fallback, ``/solve_batch`` stragglers); per-job configs
+        (portfolio racers, ``count_all``) skip it by construction.
+        ``shadow`` submits an accounting-invisible job (see ``Job.shadow``).
 
         Eligible device-path jobs (no per-job config, no roots, engine not
         enumerating) route into the geometry's resident flight when one is
@@ -539,21 +579,21 @@ class SolverEngine:
         ``EngineSaturated`` (HTTP 429 + Retry-After).  ``latency`` opts
         this submit into the megastep (``None`` defers to the engine's
         ``latency_mode``): the job is served on the caller's thread, and a
-        megastep that cannot serve it degrades to the chunked paths.  The
-        JAX engine's front-door arguments (``frontdoor``, ``shadow``) belong
-        to ROADMAP A9."""
+        megastep that cannot serve it degrades to the chunked paths."""
         g = np.asarray(grid, dtype=np.int32)
         geom = geom or geometry_for_size(g.shape[0])
         if g.shape != (geom.n, geom.n):
             raise ValueError(f"grid shape {g.shape} does not match geometry {geom}")
-        if job_uuid is not None:
+        if job_uuid is not None and not shadow:
             prev = self._dup_job(job_uuid)
             if prev is not None:
                 return prev
-        with self._lock:
-            if self._lifecycle != "serving":
-                raise EngineDraining(self._lifecycle)
-        job = Job(uuid=job_uuid or str(uuid_mod.uuid4()), grid=g, geom=geom, config=config)
+        if not shadow:
+            with self._lock:
+                if self._lifecycle != "serving":
+                    raise EngineDraining(self._lifecycle)
+        job = Job(uuid=job_uuid or str(uuid_mod.uuid4()), grid=g, geom=geom, config=config,
+                  shadow=shadow)
         job.submitted_at = self._clock()
         rec = trace.active()
         if rec is not None:
@@ -562,27 +602,54 @@ class SolverEngine:
             job.deadline = job.submitted_at + deadline_s
         # The WAL promise: `accepted` is on record before any routing, and
         # therefore before the client's 201.
-        jr = self._journal()
+        jr = None if shadow else self._journal()
         if jr is not None:
             jr.record_accepted(
                 job.uuid, grid=g,
                 config=dataclasses.asdict(config) if config is not None else None,
                 deadline_s=deadline_s, geom=f"{geom.n}x{geom.n}",
             )
-        with self._lock:
-            self._jobs_by_uuid[job.uuid] = job
-            while len(self._jobs_by_uuid) > 8192:
-                self._jobs_by_uuid.pop(next(iter(self._jobs_by_uuid)))
+        if not shadow:
+            with self._lock:
+                self._jobs_by_uuid[job.uuid] = job
+                while len(self._jobs_by_uuid) > 8192:
+                    self._jobs_by_uuid.pop(next(iter(self._jobs_by_uuid)))
         try:
-            if self._megastep_eligible(job, latency) and self._route_megastep(job):
-                return job
+            fd_token = None
+            fd_routed = False
+            if (
+                frontdoor
+                and self.frontdoor is not None
+                and config is None
+                and not self.config.count_all
+                and not shadow  # the race's fallback must not re-enter the door
+            ):
+                # The front door owns cache, propagation and native
+                # verdicts; owned=False is the hard tail, whose routing is
+                # committed (counters, cache-fill hook) only once placement
+                # below succeeded, so a 429 inflates nothing.
+                owned, fd_token = self.frontdoor.route(job, saturation=saturation)
+                if owned:
+                    return job
+                fd_routed = True
+            if self._megastep_eligible(job, latency):
+                # The megastep resolves on this thread: the cache-fill hook
+                # must be in place before it runs.
+                if fd_routed:
+                    self.frontdoor.commit_device(job, fd_token)
+                    fd_routed = False
+                if self._route_megastep(job):
+                    return job
             if not self._route_resident(job, saturation):
                 self._enqueue(job)
+            if fd_routed:
+                self.frontdoor.commit_device(job, fd_token)
             return job
         except BaseException:
             # Placement failed: the client gets an error, not a 201.
-            with self._lock:
-                self._jobs_by_uuid.pop(job.uuid, None)
+            if not shadow:
+                with self._lock:
+                    self._jobs_by_uuid.pop(job.uuid, None)
             if jr is not None:
                 jr.record_resolved(job.uuid, {"cancelled": True, "rejected": True})
             raise
@@ -781,11 +848,16 @@ class SolverEngine:
             return [mf for mf in self._megasteps.values() if mf is not None]
 
     def stats(self) -> dict:
-        return {
+        s = {
             "validations": int(self.validations),
             "solved": int(self.solved_count),
             "jobs_done": int(self.jobs_done),
         }
+        if self.frontdoor is not None:
+            # Jobs the front door answered without a device flight count as
+            # this node's work (native nodes land in `validations`).
+            s = self.frontdoor.merge_stats(s)
+        return s
 
     def metrics(self) -> dict:
         """Extended observability (GET /metrics)."""
@@ -836,6 +908,10 @@ class SolverEngine:
             }
         if self.megastep_unfit:
             out["megastep_unfit"] = int(self.megastep_unfit)
+        if self.frontdoor is not None:
+            # Cache, probe and route counters; the per-route latency
+            # histograms ride the `hist` section below.
+            out["frontdoor"] = self.frontdoor.metrics()
         fa = {
             "retries": int(self.fault_retries_total),
             "requeues": int(self.fault_requeues),
@@ -1387,7 +1463,23 @@ class SolverEngine:
             job.nodes = int(nodes[i])
             self._finish_job(job)
 
+    def _fire_on_resolve(self, job: Job) -> None:
+        """The job's resolution hook, at most once, never fatal."""
+        cb = job.on_resolve
+        if cb is not None:
+            job.on_resolve = None
+            try:
+                cb(job)
+            except Exception:  # noqa: BLE001
+                _LOG.exception("[engine] on_resolve hook failed for %s", job.uuid)
+
     def _finish_job(self, job: Job) -> None:
+        if job.shadow:
+            # Accounting-invisible (see Job.shadow): the race that submitted
+            # this job counts the user's one request itself.
+            self._fire_on_resolve(job)
+            job.done.set()
+            return
         wall = self._clock() - job.submitted_at
         self.latency.record(wall)
         # Runs with no lock held (every caller's contract).
@@ -1416,6 +1508,8 @@ class SolverEngine:
                      wall * 1000.0, job.solved, job.unsat, job.nodes)
             if job.roots is None and job.grid is not None:
                 ot.grid(job.grid, job.geom.n)
+        # The front door's cache fill, before the done event.
+        self._fire_on_resolve(job)
         self._journal_resolved(job)
         job.done.set()
 
@@ -1552,6 +1646,7 @@ class SolverEngine:
                 cp = critpath.active()
                 if cp is not None:
                     cp.observe_job(job.uuid, wall)
+            self._fire_on_resolve(job)  # as in _finish_job
             self._journal_resolved(job)
             job.done.set()
         self.batch_sizes.record(float(len(group)))

@@ -8,11 +8,17 @@ Port of the JAX package's ``serving/http.py``:
   admission queue is full; 503 + ``Retry-After`` while draining; 504 with
   the job's ``uuid`` on timeout.  Options: ``?latency=1`` (the megastep
   flight), ``"branch"`` (a per-request branch rule), ``"uuid"`` (an
-  idempotency key), ``"count_all"`` (200 with the exact model count).
-  ``"portfolio": true`` answers 501: the portfolio race is ROADMAP A9.
+  idempotency key), ``"count_all"`` (200 with the exact model count),
+  ``"portfolio": true`` (race ``serving/portfolio.DEFAULT_PORTFOLIO`` on
+  the board; the answer names the winning ``strategy``; 504 on timeout).
+  With a front door on the engine (``StandaloneNode()`` builds one) a
+  plain request crosses the canonical cache, the propagation probe and the
+  native race before any device flight; ``count_all``, ``branch`` and
+  ``portfolio`` requests bypass it (per-job configs).
 * ``POST /solve_batch`` (``{"boards": ...}`` or ``{"lines": ..., "size"}``):
   chunks of ``ops.bulk.solve_bulk`` on the engine's device-owner thread
-  (``SolverEngine.run_exclusive``), stragglers as ordinary engine jobs.
+  (``SolverEngine.run_exclusive``), stragglers as ordinary engine jobs that
+  bypass the front door (bulk is not memoised by canonical entries).
 * ``POST /profile`` ``{"secs", "logdir"}``: a bounded ``torch.profiler``
   window (``utils/profiling.py``); 409 while one is open.
 * ``POST /admin/drain``: the engine's drain ladder.
@@ -112,57 +118,74 @@ class _Handler(BaseHTTPRequestHandler):
             if payload.get("portfolio"):
                 return self._send(400, {"error": "count_all and portfolio are mutually exclusive"})
             return self._solve_count_all(node, g, start, timeout, config=config)
+        strategy = None
         if payload.get("portfolio"):
-            # serving/portfolio.py races the native oracle (ROADMAP A15),
-            # so it comes with the front door.
-            return self._send(501, {
-                "error": "portfolio racing is not ported yet (ROADMAP A9, which needs "
-                         "the native oracle, A15)",
-            })
-        try:
-            job = (
-                node.submit(grid, config=config, latency=True, job_uuid=client_uuid)
-                if latency
-                else node.submit(grid, config=config, job_uuid=client_uuid)
+            from distributed_sudoku_solver_tpu_torch.serving.portfolio import (
+                DEFAULT_PORTFOLIO,
+                race,
             )
-        except ValueError as e:
-            return self._send(400, {"error": str(e)})
-        except EngineDraining as e:
-            self._record_solve(node, self._now() - start, 503, shed=True)
-            return self._send(
-                503,
-                {"error": "draining", "state": e.state,
-                 "retry_after_s": round(e.retry_after_s, 3)},
-                headers=_retry_header(e.retry_after_s),
-            )
-        except BrownoutShed as e:
-            self._trace_http(rec, t_http, e.uuid or "", e.status)
-            self._record_solve(node, self._now() - start, e.status, shed=True)
-            return self._send(
-                e.status,
-                {"error": str(e), "stage": e.stage,
-                 "retry_after_s": round(e.retry_after_s, 3), "shed_tier": e.shed_tier},
-                headers=_retry_header(e.retry_after_s),
-            )
-        except EngineSaturated as e:
-            self._record_solve(node, self._now() - start, 429, shed=True)
-            return self._send(
-                429,
-                {"error": "server saturated", "retry_after_s": round(e.retry_after_s, 3)},
-                headers=_retry_header(e.retry_after_s),
-            )
-        if not job.wait(timeout):
-            node.cancel(job.uuid)
-            self._trace_http(rec, t_http, job.uuid, 504)
-            self._record_solve(node, self._now() - start, 504)
-            return self._send(504, {"error": "solve timed out", "uuid": job.uuid})
+
+            try:
+                res = race(node.engine, grid, DEFAULT_PORTFOLIO, timeout=timeout)
+            except ValueError as e:
+                return self._send(400, {"error": str(e)})
+            if res.winner is None:
+                if res.timed_out:
+                    self._record_solve(node, self._now() - start, 504)
+                    return self._send(504, {"error": "portfolio race timed out"})
+                # Every racer resolved without a verdict: a permanent
+                # failure (budget, overflow, a kernel fault), not a timeout.
+                err = next((j.error for j in res.jobs if j.error), None)
+                self._record_solve(node, self._now() - start, 500)
+                return self._send(500, {"error": err or "search budget exhausted"})
+            job = res.winner
+            strategy = res.strategy
+        else:
+            try:
+                job = (
+                    node.submit(grid, config=config, latency=True, job_uuid=client_uuid)
+                    if latency
+                    else node.submit(grid, config=config, job_uuid=client_uuid)
+                )
+            except ValueError as e:
+                return self._send(400, {"error": str(e)})
+            except EngineDraining as e:
+                self._record_solve(node, self._now() - start, 503, shed=True)
+                return self._send(
+                    503,
+                    {"error": "draining", "state": e.state,
+                     "retry_after_s": round(e.retry_after_s, 3)},
+                    headers=_retry_header(e.retry_after_s),
+                )
+            except BrownoutShed as e:
+                self._trace_http(rec, t_http, e.uuid or "", e.status)
+                self._record_solve(node, self._now() - start, e.status, shed=True)
+                return self._send(
+                    e.status,
+                    {"error": str(e), "stage": e.stage,
+                     "retry_after_s": round(e.retry_after_s, 3), "shed_tier": e.shed_tier},
+                    headers=_retry_header(e.retry_after_s),
+                )
+            except EngineSaturated as e:
+                self._record_solve(node, self._now() - start, 429, shed=True)
+                return self._send(
+                    429,
+                    {"error": "server saturated", "retry_after_s": round(e.retry_after_s, 3)},
+                    headers=_retry_header(e.retry_after_s),
+                )
+            if not job.wait(timeout):
+                node.cancel(job.uuid)
+                self._trace_http(rec, t_http, job.uuid, 504)
+                self._record_solve(node, self._now() - start, 504)
+                return self._send(504, {"error": "solve timed out", "uuid": job.uuid})
         duration = self._now() - start
+        extra = {"strategy": strategy} if strategy is not None else {}
         if job.solved:
             status = 201
-            body = {"solution": job.solution.tolist(), "duration": duration}
+            body = {"solution": job.solution.tolist(), "duration": duration, **extra}
         elif job.unsat:
             status = 422
-            body = {"error": "puzzle is unsatisfiable", "duration": duration}
+            body = {"error": "puzzle is unsatisfiable", "duration": duration, **extra}
         else:
             status = 500
             body = {"error": job.error or "search budget exhausted", "duration": duration}
@@ -286,9 +309,10 @@ class _Handler(BaseHTTPRequestHandler):
             solved[lo : lo + len(sl)] = res.solved
             unsat[lo : lo + len(sl)] = res.unsat
             solutions[lo : lo + len(sl)] = res.solution
-        # Stragglers (step cap hit) become ordinary engine jobs.
+        # Stragglers (step cap hit) become ordinary engine jobs, outside the
+        # front door: bulk work does not fill the result cache.
         pending = [
-            (int(i), engine.submit(grids[i], geom=geom))
+            (int(i), engine.submit(grids[i], geom=geom, frontdoor=False))
             for i in np.flatnonzero(~solved & ~unsat)
         ]
         for i, job in pending:
@@ -563,13 +587,17 @@ class ApiServer:
 class StandaloneNode:
     """Single-process node: engine + API, no cluster peers.
 
-    With no engine given it builds ``SolverEngine().start()``: on the CUDA
-    device (raising without one), with no front door.  The JAX package's
-    default adds ``FrontDoorConfig()``; the front door is ROADMAP A9."""
+    With no engine given it builds ``SolverEngine(frontdoor=FrontDoorConfig())``
+    on the CUDA device (raising without one), as the JAX package's node
+    does; a caller that passes its own engine chooses its own front door."""
 
     def __init__(self, engine: Optional[SolverEngine] = None, address: str = "local:0"):
         if engine is None:
-            engine = SolverEngine().start()
+            from distributed_sudoku_solver_tpu_torch.serving.frontdoor.router import (
+                FrontDoorConfig,
+            )
+
+            engine = SolverEngine(frontdoor=FrontDoorConfig()).start()
         self.engine = engine
         self.address = address
 

@@ -126,16 +126,19 @@ def load_frontier(
     geom: Geometry,
     config: SolverConfig,
     grids_hash: Optional[str] = None,
-    device="cpu",
+    device=None,
 ) -> Frontier:
     """Read a snapshot that :func:`save_frontier` (of either package) wrote
-    for the same problem, config and grids; raise ``ValueError`` otherwise."""
+    for the same problem, config and grids; raise ``ValueError`` otherwise.
+    The frontier lands on ``device`` (``None``: CUDA, raising without it,
+    as every entry point of the package)."""
+    dev = resolve_device(device)
     with np.load(path) as data:
         sig = bytes(data["__signature__"]).decode()
         want = _signature(geom, config, grids_hash)
         if sig != want:
             raise ValueError(f"checkpoint signature mismatch: saved {sig}, requested {want}")
-        return frontier_from_numpy({k: data[k] for k in Frontier._fields}, device=device)
+        return frontier_from_numpy({k: data[k] for k in Frontier._fields}, device=dev)
 
 
 def solve_batch_checkpointed(

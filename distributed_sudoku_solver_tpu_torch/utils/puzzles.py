@@ -2,19 +2,38 @@
 
 A small embedded corpus of public benchmark boards and a seeded generator
 for any geometry.  For a given seed the boards equal the JAX package's.
-``make_puzzle(unique=True)`` checks uniqueness with the pure-Python oracle
-(:mod:`.oracle`); the native C++ oracle is not part of this package.
+``make_puzzle(unique=True)`` checks uniqueness with the native C++ oracle
+(:mod:`..native`) where it builds, else with the pure-Python one
+(:mod:`.oracle`); both count solutions exactly, so the boards are the same.
+:func:`puzzle_batch` stacks generated boards, memoised on disk under
+``cache_dir`` (or ``DSST_PUZZLE_CACHE``) in the JAX package's file format.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
 import numpy as np
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
-from distributed_sudoku_solver_tpu_torch.utils.oracle import count_solutions
+from distributed_sudoku_solver_tpu_torch.utils.oracle import count_solutions as _py_count
+
+# Bump when random_solution/make_puzzle output could change for a given seed:
+# it keys the on-disk batch cache, so stale boards are never served.
+_GENERATOR_VERSION = 1
+
+
+def _count_solutions_fast(grid, geom: Optional[Geometry] = None, limit: int = 2) -> int:
+    """Uniqueness probe: the native oracle where it builds (carving a puzzle
+    runs dozens of these), else the pure-Python one, which stays the
+    independent authority the native library is tested against."""
+    from distributed_sudoku_solver_tpu_torch import native
+
+    if native.available():
+        return native.count_solutions(grid, geom, limit=limit)
+    return _py_count(grid, geom, limit=limit)
 
 
 def parse_line(line: str, n: int = 9) -> np.ndarray:
@@ -111,11 +130,58 @@ def make_puzzle(
         puzzle[r, c] = 0
         if unique:
             probes += 1
-            if count_solutions(puzzle, geom, limit=2) != 1:
+            if _count_solutions_fast(puzzle, geom, limit=2) != 1:
                 puzzle[r, c] = saved
                 continue
         remaining -= 1
     return puzzle
+
+
+def batch_cache_path(
+    geom: Geometry,
+    count: int,
+    seed: int = 0,
+    n_clues: Optional[int] = None,
+    unique: bool = True,
+    cache_dir: Optional[str] = None,
+) -> Optional[str]:
+    """On-disk cache path :func:`puzzle_batch` uses for these parameters
+    (None when no cache dir is configured): the JAX package's key format,
+    so either package reads the other's corpus."""
+    cache_dir = cache_dir or os.environ.get("DSST_PUZZLE_CACHE")
+    if not cache_dir:
+        return None
+    key = (
+        f"v{_GENERATOR_VERSION}_{geom.box_h}x{geom.box_w}"
+        f"_{count}_{seed}_{n_clues}_{int(unique)}"
+    )
+    return os.path.join(cache_dir, f"puzzles_{key}.npy")
+
+
+def puzzle_batch(
+    geom: Geometry,
+    count: int,
+    seed: int = 0,
+    n_clues: Optional[int] = None,
+    unique: bool = True,
+    cache_dir: Optional[str] = None,
+) -> np.ndarray:
+    """Stack ``count`` generated puzzles (seeds ``seed..seed+count-1``) into
+    int64[count, n, n], memoised on disk when a cache dir is configured.
+    Generation is deterministic, so the cache changes latency only."""
+    path = batch_cache_path(geom, count, seed, n_clues, unique, cache_dir)
+    if path and os.path.exists(path):
+        return np.load(path)
+    batch = np.stack(
+        [make_puzzle(geom, seed + i, n_clues=n_clues, unique=unique) for i in range(count)]
+    )
+    if path:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        # np.save appends '.npy' unless the name already ends with it.
+        tmp = f"{path}.{os.getpid()}.tmp.npy"
+        np.save(tmp, batch)
+        os.replace(tmp, path)
+    return batch
 
 
 @functools.lru_cache(maxsize=None)

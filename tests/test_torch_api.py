@@ -2,9 +2,8 @@
 
 Twins of ``tests/test_api.py`` (golden request/response pairs for
 ``/solve``, ``/stats``, ``/network``, bulk, enumeration, tracing,
-Prometheus exposition, the profile window, the access log), with
-``"portfolio": true`` answering 501 until the portfolio race is ported
-(ROADMAP A9).  The JSON bodies of ``/solve``, ``/stats``, ``/network`` and
+Prometheus exposition, the profile window, the access log, the portfolio
+race).  The JSON bodies of ``/solve``, ``/stats``, ``/network`` and
 ``/metrics`` are held against a JAX node serving the same board: same
 status codes, same key structure.
 """
@@ -183,15 +182,46 @@ def test_unknown_paths(server):
     assert _request(server, "/nope", {"x": 1})[0] == 404
 
 
-def test_solve_portfolio_answers_501_until_a9(server):
-    """The portfolio race needs the native oracle (ROADMAP A9, A15): 501
-    naming the item, where the JAX node answers 201 with a strategy."""
-    status, body = _request(server, "/solve", {"sudoku": np.asarray(HARD_9[0]).tolist(),
-                                               "portfolio": True})
-    assert status == 501
-    assert "A9" in body["error"]
+def test_solve_portfolio_option(server):
+    """POST /solve with portfolio=true races the default strategy portfolio
+    (``serving/portfolio.DEFAULT_PORTFOLIO``) and reports the winning branch
+    rule; the solution keeps its givens and is the oracle's; an unsat board
+    answers 422 with the strategy.  count_all and portfolio stay exclusive."""
+    from distributed_sudoku_solver_tpu_torch import native
+
+    board = np.asarray(HARD_9[0])
+    status, body = _request(server, "/solve", {"sudoku": board.tolist(), "portfolio": True})
+    assert status == 201
+    assert set(body) == {"solution", "duration", "strategy"}
+    sol = np.asarray(body["solution"])
+    assert is_valid_solution(sol) and np.array_equal(sol[board > 0], board[board > 0])
+    assert np.array_equal(sol, native.solve(board)[0])
+    assert body["strategy"] in ("minrem", "minrem-desc", "first")
+    status, body = _request(server, "/solve", {"sudoku": bad_board().tolist(), "portfolio": True})
+    assert status == 422
+    assert body["strategy"] in ("minrem", "minrem-desc", "first")
     assert _request(server, "/solve", {"sudoku": np.asarray(EASY_9).tolist(),
                                        "portfolio": True, "count_all": True})[0] == 400
+
+
+def test_solve_portfolio_times_out_with_504():
+    """A race with no verdict inside the request's timeout answers 504 and
+    cancels its racers, as the JAX node does."""
+    engine = SolverEngine(config=SMALL, max_batch=8, device="cpu").start()
+    api = ApiServer(StandaloneNode(engine=engine), host="127.0.0.1", port=0,
+                    solve_timeout_s=0.0).start()
+    try:
+        status, body = _request(api, "/solve", {"sudoku": np.asarray(HARD_9[0]).tolist(),
+                                                "portfolio": True})
+        assert status == 504 and "timed out" in body["error"]
+        for _ in range(200):
+            if engine.busy_depth() == 0:
+                break
+            time.sleep(0.05)
+        assert engine.busy_depth() == 0
+    finally:
+        api.stop()
+        engine.stop()
 
 
 def test_solve_batch_endpoint_boards(server):

@@ -67,7 +67,7 @@ def test_save_load_round_trip(tmp_path):
                                  TCFG)
     path = str(tmp_path / "f.npz")
     tck.save_frontier(path, state, TG, TCFG, grids_hash=tck.grids_digest(grids))
-    back = tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids))
+    back = tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids), device="cpu")
     for k, v in state._asdict().items():
         assert torch.equal(getattr(back, k), v) and getattr(back, k).dtype == v.dtype, k
     assert sorted(os.listdir(tmp_path)) == ["f.npz"]  # the temporary file was renamed
@@ -109,7 +109,8 @@ def test_jax_snapshot_resumes_in_the_port(tmp_path):
     state = jck.advance_frontier(jck.start_frontier(jnp.asarray(grids), JG, JCFG), jnp.int32(6),
                                  JG, JCFG)
     jck.save_frontier(path, state, JG, JCFG, grids_hash=jck.grids_digest(grids))
-    loaded = tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids))
+    loaded = tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids),
+                              device="cpu")
     host = {k: np.asarray(v) for k, v in state._asdict().items()}
     got = frontier_to_numpy(loaded)
     assert all(np.array_equal(got[k], host[k]) and got[k].dtype == host[k].dtype for k in host)
@@ -142,9 +143,25 @@ def test_mismatched_snapshot_rejected(tmp_path):
     tck.save_frontier(path, state, TG, TCFG, grids_hash=tck.grids_digest(grids))
     with pytest.raises(ValueError, match="signature mismatch"):
         tck.load_frontier(path, TG, dataclasses.replace(TCFG, stack_slots=32),
-                          grids_hash=tck.grids_digest(grids))
+                          grids_hash=tck.grids_digest(grids), device="cpu")
     with pytest.raises(ValueError, match="signature mismatch"):
-        tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids[:2]))
+        tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids[:2]), device="cpu")
     with pytest.raises(ValueError, match="signature mismatch"):
         jck.load_frontier(path, JG, dataclasses.replace(JCFG, branch="head:mlp"),
                           grids_hash=jck.grids_digest(grids))
+
+
+def test_load_frontier_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """``load_frontier`` is an entry point: ``device=None`` means CUDA and
+    raises without it; ``device="cpu"`` reads the snapshot as before."""
+    grids = _grids()
+    path = str(tmp_path / "f.npz")
+    state = tck.start_frontier(torch.from_numpy(grids), TG, TCFG)
+    tck.save_frontier(path, state, TG, TCFG, grids_hash=tck.grids_digest(grids))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids))
+    back = tck.load_frontier(path, TG, TCFG, grids_hash=tck.grids_digest(grids), device="cpu")
+    for k, v in state._asdict().items():
+        got = getattr(back, k)
+        assert got.device.type == "cpu" and got.dtype == v.dtype and torch.equal(got, v), k

@@ -590,8 +590,51 @@ def test_engine_needs_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StandaloneNode()
     assert SolverEngine(device="cpu").device.type == "cpu"
-    with pytest.raises(ValueError, match="A9"):
-        SolverEngine(device="cpu", frontdoor=object())
+    from distributed_sudoku_solver_tpu_torch.serving.frontdoor.router import FrontDoorConfig
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SolverEngine(frontdoor=FrontDoorConfig())
+    assert SolverEngine(device="cpu", frontdoor=FrontDoorConfig()).frontdoor is not None
+
+
+def test_frontdoor_routes_cache_propagation_native_and_device():
+    """``SolverEngine(device="cpu", frontdoor=FrontDoorConfig())`` routes
+    each submit as the JAX engine does: a hard board to a device flight, its
+    transformed repeat to the cache, an easy-open board to the native race,
+    EASY_9 and an unsat board to the propagation probe; stats count every
+    answered job; ``frontdoor=False`` bypasses the door."""
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9 as G9
+    from distributed_sudoku_solver_tpu_torch.serving.frontdoor.canonical import (
+        apply_transform,
+        random_transform,
+    )
+    from distributed_sudoku_solver_tpu_torch.serving.frontdoor.router import FrontDoorConfig
+
+    eng = cpu_engine(config=SMALL, max_batch=8, frontdoor=FrontDoorConfig()).start()
+    try:
+        hard = np.asarray(HARD_9[0])
+        tr = random_transform(G9, np.random.default_rng(5))
+        boards = [hard, apply_transform(hard, tr), make_puzzle(G9, 123, n_clues=30),
+                  np.asarray(EASY_9), bad_board()]
+        jobs = [eng.submit(b) for b in boards[:1]]
+        assert jobs[0].wait(120)
+        jobs += [eng.submit(b) for b in boards[1:]]
+        for j in jobs:
+            assert j.wait(120), j.error
+        assert [j.route for j in jobs] == ["device", "cache", "native", "propagation",
+                                          "propagation"]
+        assert [j.solved for j in jobs] == [True] * 4 + [False] and jobs[-1].unsat
+        assert np.array_equal(jobs[0].solution, hard9_solutions()[0])
+        assert np.array_equal(jobs[1].solution, apply_transform(jobs[0].solution, tr))
+        fd = eng.metrics()["frontdoor"]
+        assert fd["routes"] == {"cache": 1, "propagation": 2, "native": 1, "device": 1}
+        assert fd["probe"] == {"solved": 1, "unsat": 1, "easy": 1, "hard": 1}
+        assert eng.stats()["jobs_done"] == 5 and eng.stats()["solved"] == 4
+        direct = eng.submit(hard, frontdoor=False)
+        assert direct.wait(120) and direct.solved and direct.route is None
+        assert eng.metrics()["frontdoor"]["routes"]["device"] == 1
+    finally:
+        eng.stop(timeout=5)
 
 
 def test_drain_journals_unstarted_work_and_recover_replays_it(tmp_path):

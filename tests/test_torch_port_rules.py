@@ -122,6 +122,35 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     assert bool(res.solved[0])
 
 
+def test_later_entry_points_raise_without_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """``load_frontier``, ``dataset.solve_file``, ``portfolio.race_cover``
+    and a default ``StandaloneNode()`` resolve ``device=None`` to CUDA."""
+    from distributed_sudoku_solver_tpu_torch.serving.http import StandaloneNode
+    from distributed_sudoku_solver_tpu_torch.serving.portfolio import race_cover
+    from distributed_sudoku_solver_tpu_torch.utils import checkpoint, dataset
+
+    grids = np.stack([HARD_9[0]]).astype(np.int32)
+    cfg = SolverConfig(min_lanes=4)
+    snap = str(tmp_path / "f.npz")
+    state = checkpoint.start_frontier(torch.from_numpy(grids), SUDOKU_9, cfg)
+    checkpoint.save_frontier(snap, state, SUDOKU_9, cfg)
+    boards = str(tmp_path / "in.txt")
+    dataset.save_boards(boards, grids)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: checkpoint.load_frontier(snap, SUDOKU_9, cfg),
+        lambda: dataset.solve_file(boards, str(tmp_path / "out.txt"), SUDOKU_9),
+        lambda: race_cover(nqueens_cover(6), timeout=10.0),
+        StandaloneNode,
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert checkpoint.load_frontier(snap, SUDOKU_9, cfg, device="cpu").top.device.type == "cpu"
+    assert dataset.solve_file(boards, None, SUDOKU_9, device="cpu")["solved"] == 1
+    assert race_cover(nqueens_cover(6), timeout=60.0, device="cpu").count == 4
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     meta = torch.empty((2, 9, 9), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
