@@ -9,6 +9,7 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py --bulk         # phases 1, 3 and bulk passes at inflight 3, 1, 1, 3 only
     python3 chip_smoke.py --serving      # phases 1-3, 12 and the serving phase (17) only
     python3 chip_smoke.py --frontdoor    # phases 1-3 and the front-door phase (18) only
+    python3 chip_smoke.py --cluster      # phases 1-3 and the cluster phase (19) only
 
 Phases, each of which must pass (nothing is caught and skipped):
 
@@ -82,12 +83,15 @@ Phases, each of which must pass (nothing is caught and skipped):
    interrupted after its first chunk, resumed from the snapshot on disk,
    bit-identical to an uninterrupted run on every field;
 15. P16, the uint16 probe's fixpoint kernel, against its plain version on
-   the probe's 65,536 boards (both mask widths; caps 64, 1 and 2; an odd
-   board count); then the probe's own run, ``probes.uint16.run_probe`` (16
-   chained dispatches per width, best of 3 interleaved), with its
-   launches counted from zero: ``uint32_fixpoints_per_s``,
-   ``uint16_fixpoints_per_s``, ``speedup_uint16``, ``bit_equal_low16``;
-   each width's device time, plain time and bound;
+   the probe's 65,536 boards (the JAX probe's corpus: 512 unique 24-clue
+   boards, ``puzzle_batch(SUDOKU_9, 512, seed=7, n_clues=24)``, tiled;
+   both mask widths; caps 64, 1 and 2; an odd board count); then the
+   probe's own run, ``probes.uint16.run_probe`` (16 chained dispatches per
+   width, best of 3 interleaved), with its launches counted from zero:
+   ``uint32_fixpoints_per_s``, ``uint16_fixpoints_per_s``,
+   ``speedup_uint16``, ``bit_equal_low16``; each width's device time (the
+   profiler, and CUDA events around 20 launches back to back), plain time
+   and bound;
 16. PCV, the cover-primitive probe's kernel, against its plain version on
    the probe's seed-0 inputs at 3, 0, 1 and 7 steps; then the probe's own
    run, ``probes.cover_kernel.run_probe`` (which fails unless the output
@@ -137,12 +141,45 @@ Phases, each of which must pass (nothing is caught and skipped):
    boards.  Printed: requests/s per pass, per route the count and the
    ``frontdoor_*_ms`` histograms' p50 / p95 / p99, the portfolio walls and
    winners, the cover race's winner and wall, ``solve_file``'s boards/s;
-19. the seconds the script took, the build's among them, then one JSON
+19. the cluster and the CLI at the CLI's default deployment.  Ring R:
+   three node processes started as a user starts them, ``python -m
+   distributed_sudoku_solver_tpu_torch -p <http> -s <p2p> --host 127.0.0.1
+   --advertise-host 127.0.0.1`` (B and C with ``-a`` A's p2p address),
+   after phase 2 built the kernels, until every ``GET /network`` lists 3
+   members.  Pass A: 1,024 unique boards (phase 18's: seeds 1000.., clue
+   targets 22-30) plus HARD_9 from 32 clients round-robin over A, B and
+   C, each 201 the native oracle's solution, and every node's engine
+   running TASKs that another node accepted (``tasks_run``).  Pass B: each
+   board under one seeded transform, sent to the next node, bit-exact in
+   the client's frame, the digest owners' caches answering at least every
+   cacheable board (cache-affine routing sends a repeat to the owner of
+   its orbit); the DHT shards and gossip views printed.  Crash: 256 fresh
+   unique boards (seeds 5000..) from 32 clients to A and B; C is
+   SIGKILLed once it runs a job of theirs; A and B must list 2 members
+   within fail_factor x heartbeat_s + 5 s, every request must be answered
+   with the oracle's solution (none lost, no 5xx), at least one job must
+   have been re-executed; C restarts on its ports and all three list 3
+   members again.  ``POST /solve_batch`` of 4,096 boards (K2) on each
+   node, checked; ``/metrics?scope=cluster``'s rollup ``jobs_done`` the
+   sum of the nodes' and no node unreachable; SIGTERM to each node, which
+   prints its ``drain:`` line and exits 0.  In this process: (F)
+   ``cli.main(["solve-file", ...])`` on phase 3's boards as lines, every
+   line solved and valid, K2 launched; (O) two ``ClusterNode``s over TCP
+   whose engines are node F's without a resident flight and with 8-round
+   chunks (the proof below runs 98 rounds: at node F's 64 it spans two
+   chunks, which leaves a NEEDWORK almost no boundary to shed at): the
+   deep unsat board (HARD_9[1] with one wrong clue) on the first, slowed
+   by a 0.05 s handicap per sync, until the second has asked for work and
+   run a shed SUBTASK (at most 32 boards), every verdict unsat as the
+   oracle's, K2 launched.  Printed: requests/s and p50 / p95 / p99 per
+   pass, the detection and rejoin walls, re-executions, resumes, SUBTASK
+   counts, the DHT counters, ``solve-file``'s boards/s;
+20. the seconds the script took, the build's among them, then one JSON
    line ``{"kernels": [...]}`` (launches on the paths, times at the path's
    shape, the plain version's time, the bound; K2 once more for each
    head, P16 once per mask width; K1's and K2's launches include the
-   serving phase's, K2's the front-door phase's too);
-20. the last line, ``{"ok": true, "device": {...}}``.
+   serving phase's, K2's the front-door and cluster phases' too);
+21. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -175,7 +212,8 @@ SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, com
              cover_fanout_steps=160, cover_composite_lanes=1024, head_boards=32768,
              flight_extra=2, snapshot_boards=4096, snapshot_chunk=8, probe_boards=65536,
              probe_iters=16, serving_mass=1024, serving_clients=32, serving_burst=200,
-             serving_static=256, serving_bulk=4096, frontdoor_unique=1024, frontdoor_unsat=8)
+             serving_static=256, serving_bulk=4096, frontdoor_unique=1024, frontdoor_unsat=8,
+             cluster_unique=1024, cluster_crash=256, cluster_bulk=4096)
 
 HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
 
@@ -1438,11 +1476,16 @@ def phase_p16(sizes, dev):
         x = cand32.to(dtype)
         ms = device_ms(lambda c: p16.fixpoint_probe_cuda(c), sizes["reps"], lambda x=x: x,
                        "probe_fixpoint_kernel")
+        # Beside the profiler: CUDA events around 20 back-to-back launches,
+        # so the wrapper's host work between launches is amortized.
+        ev_ms = event_ms(lambda c: [p16.fixpoint_probe_cuda(c) for _ in range(20)],
+                         sizes["reps"], lambda x=x: x) / 20
         plain_ms = event_ms(lambda _, x=x: p16.fixpoint_probe_plain(x), 1)
         n_bytes = 2 * x.numel() * x.element_size()
         n_ops = int(sweeps.sum()) * sweep_ops(SUDOKU_9, "basic") / (2 if name == "uint16" else 1)
         bms, by = bound_ms(n_bytes, n_ops)
-        log(f"[15] P16 timing {name} T={batch}: {ms:.4f} ms (kernel, profiler), plain "
+        log(f"[15] P16 timing {name} T={batch}: {ms:.4f} ms (kernel, profiler), {ev_ms:.4f} "
+            f"ms (CUDA events, 20 launches back to back), plain "
             f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}); board-sweeps {int(sweeps.sum())}")
         rows[name] = dict(launches=out["launches"][name], max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bms, bound_by=by)
@@ -1532,37 +1575,40 @@ def _http(port: int, path: str, body=None, timeout: float = 600.0):
         "application/json") else text)
 
 
-def _post_all(port: int, boards, threads: int, path: str = "/solve", retry_429: bool = True):
-    """POST every board from ``threads`` client threads at once.  With
-    ``retry_429`` a client sleeps the answer's Retry-After and tries again.
-    Returns per board ``(status, headers, body, latency_ms, tries)`` and the
-    wall of the whole run."""
+def _post_all(port, boards, threads: int, path: str = "/solve", retry_429: bool = True):
+    """POST every board from ``threads`` client threads at once, to
+    ``port`` (or to ``port[i]`` for board ``i`` when ``port`` is a list).
+    With ``retry_429`` a client sleeps the answer's Retry-After and tries
+    again.  Returns per board ``(status, headers, body, latency_ms, tries)``
+    and the wall of the whole run."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def one(board):
+    ports = port if isinstance(port, (list, tuple)) else [port] * len(boards)
+
+    def one(i):
         t0 = time.perf_counter()
         tries = 0
         while True:
             tries += 1
-            out = _http(port, path, {"sudoku": board.tolist()})
+            out = _http(ports[i], path, {"sudoku": boards[i].tolist()})
             if out[0] != 429 or not retry_429:
                 return (*out, (time.perf_counter() - t0) * 1e3, tries)
             time.sleep(float(out[1]["Retry-After"]))
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=threads) as pool:
-        results = list(pool.map(one, boards))
+        results = list(pool.map(one, range(len(boards))))
     return results, time.perf_counter() - t0
 
 
-def _route_line(route: str, results, wall_s: float) -> dict:
+def _route_line(route: str, results, wall_s: float, tag: str = "[17]") -> dict:
     import numpy as np
 
     lat = np.asarray([r[3] for r in results], dtype=np.float64)
     p50, p95, p99 = np.percentile(lat, [50, 95, 99])
     row = dict(route=route, requests=len(results), requests_per_s=len(results) / wall_s,
                p50_ms=float(p50), p95_ms=float(p95), p99_ms=float(p99))
-    log(f"[17] route {route}: {row['requests']} requests in {wall_s:.3f} s, "
+    log(f"{tag} route {route}: {row['requests']} requests in {wall_s:.3f} s, "
         f"{row['requests_per_s']:.1f} requests/s, p50 {p50:.3f} / p95 {p95:.3f} / "
         f"p99 {p99:.3f} ms")
     return row
@@ -1995,12 +2041,11 @@ def phase_frontdoor(corpus, device, sizes, dev) -> dict:
         + (f"built in {native.build_seconds:.3f} s in this run (phase 2)"
            if native.build_seconds is not None else "found built"))
     hard9 = [np.asarray(h, np.int32) for h in HARD_9]
-    carved = [make_puzzle(SUDOKU_9, 1000 + i, n_clues=22 + i % 9).astype(np.int32)
-              for i in range(sizes["frontdoor_unique"])]
+    carved, want = _unique_boards(sizes["frontdoor_unique"], 1000)
     boards = carved + hard9
-    want = [native.solve(b)[0] for b in boards]
-    if any(w is None or native.count_solutions(b, limit=2) != 1 for b, w in zip(boards, want)):
-        raise AssertionError("a pass-A board is not a unique puzzle")
+    want = want + [native.solve(b)[0] for b in hard9]
+    if any(w is None or native.count_solutions(b, limit=2) != 1 for b, w in zip(hard9, want[len(carved):])):
+        raise AssertionError("a HARD_9 board is not a unique puzzle")
     log(f"[18] corpus: {len(carved)} unique carved 9x9 boards (seeds 1000.., clue targets "
         f"22-30) + HARD_9, oracle solutions, in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(18)
@@ -2168,6 +2213,450 @@ def phase_frontdoor(corpus, device, sizes, dev) -> dict:
     return {"K2": launches_d + launches_f}
 
 
+def _free_ports(k: int) -> list:
+    import socket
+
+    socks = []
+    try:
+        for _ in range(k):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class _RingNode:
+    """One node of ring R: a process started the way a user starts one,
+    ``python -m distributed_sudoku_solver_tpu_torch -p <http> -s <p2p>``,
+    its output in a log file."""
+
+    def __init__(self, name: str, node_cmd, http: int, p2p: int, anchor, logdir: str):
+        self.name, self.node_cmd, self.http, self.p2p = name, node_cmd, http, p2p
+        self.anchor = anchor
+        self.log_path = os.path.join(logdir, f"node-{name}.log")
+        self.proc = None
+
+    @property
+    def addr(self) -> str:
+        return f"127.0.0.1:{self.p2p}"
+
+    def start(self) -> None:
+        argv = list(self.node_cmd) + [
+            "-p", str(self.http), "-s", str(self.p2p), "--host", "127.0.0.1",
+            "--advertise-host", "127.0.0.1"]
+        if self.anchor:
+            argv += ["-a", f"127.0.0.1:{self.anchor}"]
+        with open(self.log_path, "ab") as out:
+            self.proc = subprocess.Popen(argv, cwd=REPO, stdout=out, stderr=subprocess.STDOUT,
+                                         env=dict(os.environ, PYTHONUNBUFFERED="1"))
+
+    def tail(self, n: int = 30) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return "".join(f.readlines()[-n:])
+
+    def members(self):
+        """The members its ``GET /network`` lists, or None while it does not answer."""
+        try:
+            st, _, body = _http(self.http, "/network", timeout=5)
+        except OSError:
+            return None
+        return sorted(body) if st == 200 else None
+
+    def cluster(self) -> dict:
+        st, _, body = _http(self.http, "/metrics", timeout=60)
+        if st != 200:
+            raise AssertionError(f"node {self.name}: /metrics {st}")
+        return body
+
+
+def _ring_wait(nodes, pred, timeout: float, what: str) -> float:
+    """Poll ``pred`` until it holds; the wall it took.  Fails with the
+    nodes' log tails if it does not hold in time or a node process died."""
+    t0 = time.perf_counter()
+    while not pred():
+        dead = [n for n in nodes if n.proc is not None and n.proc.poll() is not None]
+        if dead or time.perf_counter() - t0 > timeout:
+            logs = "\n".join(f"--- node {n.name} ---\n{n.tail()}" for n in nodes)
+            raise AssertionError(f"[19] {what}: " + (
+                f"node {dead[0].name} exited {dead[0].proc.returncode}" if dead else
+                f"not within {timeout:g} s") + f"\n{logs}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+_UNIQUE_BOARDS: dict = {}
+
+
+def _unique_boards(count: int, seed: int):
+    """``count`` unique 9x9 boards carved with ``make_puzzle(unique=True)``
+    (seeds ``seed``.., clue targets 22-30) and their native-oracle
+    solutions, made once per run (phases 18 and 19 share them)."""
+    if (count, seed) in _UNIQUE_BOARDS:
+        return _UNIQUE_BOARDS[count, seed]
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch import native
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import make_puzzle
+
+    boards = [make_puzzle(SUDOKU_9, seed + i, n_clues=22 + i % 9).astype(np.int32)
+              for i in range(count)]
+    want = [native.solve(b)[0] for b in boards]
+    if any(w is None or native.count_solutions(b, limit=2) != 1 for b, w in zip(boards, want)):
+        raise AssertionError("a carved board is not a unique puzzle")
+    _UNIQUE_BOARDS[count, seed] = boards, want
+    return boards, want
+
+
+def _cluster_counter(nodes, key: str) -> dict:
+    return {n.name: n.cluster()["cluster"][key] for n in nodes}
+
+
+def phase_ring(corpus, device, sizes, node_cmd=None) -> dict:
+    """Ring R: three node processes of the CLI's default deployment on one
+    card, joined through A, serving passes A (placement), B (the DHT-routed
+    cache), a crash of C with re-execution and C's rejoin, ``/solve_batch``
+    on every node, the federated ``/metrics`` and a SIGTERM drain."""
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.serving.frontdoor.canonical import (
+        apply_transform,
+        canonicalize,
+        random_transform,
+    )
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import is_valid_solution
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, to_line
+
+    node_cmd = node_cmd or [sys.executable, "-m", "distributed_sudoku_solver_tpu_torch"]
+    heartbeat_s, fail_factor = 1.0, 3.0  # the CLI's defaults (ClusterConfig)
+    clients = sizes["serving_clients"]
+    t0 = time.perf_counter()
+    carved, want_c = _unique_boards(sizes["cluster_unique"], 1000)
+    hard9 = [np.asarray(h, np.int32) for h in HARD_9]
+    boards = carved + hard9
+    want = want_c + list(hard9_solutions())
+    crash, want_crash = _unique_boards(sizes["cluster_crash"], 5000)
+    cacheable = sum(canonicalize(b, SUDOKU_9) is not None for b in boards)
+    log(f"[19] corpus: {len(carved)} unique boards (seeds 1000..) + HARD_9, {cacheable} "
+        f"cacheable; crash corpus {len(crash)} unique boards (seeds 5000..); "
+        f"{time.perf_counter() - t0:.2f} s")
+    http_a, p2p_a, http_b, p2p_b, http_c, p2p_c = _free_ports(6)
+    logdir = tempfile.mkdtemp(prefix="dsst-ring-")
+    a = _RingNode("A", node_cmd, http_a, p2p_a, None, logdir)
+    b = _RingNode("B", node_cmd, http_b, p2p_b, p2p_a, logdir)
+    c = _RingNode("C", node_cmd, http_c, p2p_c, p2p_a, logdir)
+    nodes = [a, b, c]
+    out: dict = {}
+    try:
+        t1 = time.perf_counter()
+        a.start()
+        _ring_wait(nodes, lambda: a.members() == [a.addr], 300, "A never answered")
+        b.start()
+        c.start()
+        three = sorted(n.addr for n in nodes)
+        _ring_wait(nodes, lambda: all(n.members() == three for n in nodes), 300,
+                   "the ring never listed 3 members")
+        out["ring_up_s"] = time.perf_counter() - t1
+        log(f"[19] ring R up: A {a.addr}, B {b.addr}, C {c.addr} (http {http_a}, {http_b}, "
+            f"{http_c}); every GET /network lists 3 members after {out['ring_up_s']:.2f} s")
+
+        # Pass A: round-robin over the three HTTP ports; placement spreads it.
+        runs0 = _cluster_counter(nodes, "tasks_run")
+        ports = [nodes[i % 3].http for i in range(len(boards))]
+        res, wall = _post_all(ports, boards, threads=clients)
+        _expect_solutions(res, want, "[19] pass A")
+        out["pass_A"] = _route_line("pass A", res, wall, tag="[19]")
+        runs = _cluster_counter(nodes, "tasks_run")
+        served = {k: runs[k] - runs0[k] for k in runs}
+        if min(served.values()) <= 0:
+            raise AssertionError(f"[19] pass A: a node ran no job another node accepted: {served}")
+        log(f"[19] pass A: TASKs from peers run per node {served}")
+
+        # Pass B: each board under one seeded transform, to the next node.
+        rng = np.random.default_rng(19)
+        trs = [random_transform(SUDOKU_9, rng) for _ in boards]
+        moved = [apply_transform(x, tr) for x, tr in zip(boards, trs)]
+        cache0 = {n.name: n.cluster()["frontdoor"]["routes"]["cache"] for n in nodes}
+        aff0 = {n.name: n.cluster()["dht"]["affinity"]["routed"] for n in nodes}
+        ports = [nodes[(i + 1) % 3].http for i in range(len(moved))]
+        res, wall = _post_all(ports, moved, threads=clients)
+        _expect_solutions(res, [apply_transform(w, tr) for w, tr in zip(want, trs)], "[19] pass B")
+        out["pass_B"] = _route_line("pass B", res, wall, tag="[19]")
+        cache = {n.name: n.cluster()["frontdoor"]["routes"]["cache"] - cache0[n.name]
+                 for n in nodes}
+        aff = {n.name: n.cluster()["dht"]["affinity"]["routed"] - aff0[n.name] for n in nodes}
+        dht = {}
+        for n in nodes:
+            st, _, body = _http(n.http, "/network?scope=dht")
+            if st != 200:
+                raise AssertionError(f"[19] node {n.name}: /network?scope=dht {st}")
+            dht[n.name] = {k: body["cluster_cache"][k] for k in (
+                "entries", "lookups", "local_hits", "remote_hits", "misses", "puts_sent",
+                "gets_served")}
+            if sorted(body["members"]) != three or any(
+                    m["state"] != "alive" for m in body["members"].values()):
+                raise AssertionError(f"[19] node {n.name}: gossip view {body['members']}")
+        if sum(cache.values()) < cacheable:
+            raise AssertionError(f"[19] pass B: {sum(cache.values())} cache answers on the "
+                                 f"digest owners < {cacheable} cacheable boards")
+        out["dht"] = {"cache_answers": cache, "affinity_routed": aff, "shards": dht}
+        log(f"[19] pass B: cache answers per node {cache} (>= {cacheable} cacheable), affinity-"
+            f"routed submits {aff}; DHT shards {json.dumps(dht)}")
+
+        # Crash: C is SIGKILLed with a job of A's or B's in flight.
+        re0 = _cluster_counter([a, b], "reexecuted")
+        rs0 = _cluster_counter([a, b], "resumed")
+        box: dict = {}
+        ports = [(a, b)[i % 2].http for i in range(len(crash))]
+        pump = threading.Thread(
+            target=lambda: box.update(zip(("res", "wall"), _post_all(ports, crash, clients))),
+            daemon=True)
+        t_pass = time.perf_counter()
+        pump.start()
+        t_kill = None
+        while pump.is_alive():
+            try:
+                running = c.cluster()["cluster"]["execs_running"]
+                if running >= 1 and pump.is_alive():
+                    c.proc.kill()
+                    t_kill = time.perf_counter()
+                    break
+            except OSError:
+                pass
+            time.sleep(0.002)
+        if t_kill is None:
+            raise AssertionError("[19] crash: C never held a job in flight")
+        c.proc.wait(60)
+        two = sorted([a.addr, b.addr])
+        detect = _ring_wait([a, b], lambda: a.members() == two and b.members() == two,
+                            60, "A and B never dropped C")
+        pump.join(900)
+        if pump.is_alive():
+            raise AssertionError("[19] crash: clients still waiting after 900 s")
+        _expect_solutions(box["res"], want_crash, "[19] crash pass")
+        out["crash"] = _route_line("crash", box["res"], box["wall"], tag="[19]")
+        reexec = {k: v - re0[k] for k, v in _cluster_counter([a, b], "reexecuted").items()}
+        resumed = {k: v - rs0[k] for k, v in _cluster_counter([a, b], "resumed").items()}
+        if sum(reexec.values()) <= 0:
+            raise AssertionError("[19] crash: no job was re-executed or resumed")
+        bound = fail_factor * heartbeat_s + 5.0
+        if detect > bound:
+            raise AssertionError(f"[19] crash: A and B dropped C after {detect:.2f} s > {bound} s")
+        t1 = time.perf_counter()
+        c.start()
+        _ring_wait(nodes, lambda: all(n.members() == three for n in nodes), 300,
+                   "C never rejoined")
+        rejoin = time.perf_counter() - t1
+        out["crash"].update(detect_s=detect, rejoin_s=rejoin, reexecuted=reexec, resumed=resumed)
+        log(f"[19] crash: C killed {t_kill - t_pass:.3f} s into the pass with {running} "
+            f"job(s) of A's or B's running there; the pass ended {box['wall']:.3f} s in")
+        log(f"[19] crash: A and B list 2 members after "
+            f"{detect:.3f} s (bound {bound:g} s); {len(crash)} requests answered, none lost, "
+            f"no 5xx; re-executed {reexec}, of which resumed from a snapshot {resumed}; C "
+            f"restarted on its ports and all three list 3 members after {rejoin:.3f} s")
+
+        # K2 on every node: /solve_batch runs solve_bulk (BulkConfig(): fused).
+        bulk = corpus[:sizes["cluster_bulk"]]
+        out["solve_batch_boards_per_s"] = {}
+        for n in nodes:
+            t1 = time.perf_counter()
+            st, _, body = _http(n.http, "/solve_batch",
+                                {"lines": [to_line(x) for x in bulk], "size": 9})
+            wall = time.perf_counter() - t1
+            if st != 200 or body["solved"] != len(bulk) or body["unsat"]:
+                raise AssertionError(f"[19] node {n.name} solve_batch: {st} {str(body)[:300]}")
+            for x, line in zip(bulk, body["solutions"]):
+                sol = np.asarray([int(ch, 36) for ch in line]).reshape(9, 9)
+                if not is_valid_solution(sol) or not np.array_equal(sol[x > 0], x[x > 0]):
+                    raise AssertionError(f"[19] node {n.name} solve_batch: an invalid solution")
+            out["solve_batch_boards_per_s"][n.name] = len(bulk) / wall
+        log(f"[19] /solve_batch of {len(bulk)} boards on each node, boards/s "
+            f"{out['solve_batch_boards_per_s']}")
+
+        # Federation: the rollup is the sum of the per-node bodies.
+        st, _, cm = _http(a.http, "/metrics?scope=cluster")
+        per = cm["nodes"]
+        if st != 200 or len(per) != 3 or any(v["unreachable"] for v in per.values()):
+            raise AssertionError(f"[19] /metrics?scope=cluster: {st}, nodes {list(per)}")
+        jobs = sum(v["metrics"]["jobs_done"] for v in per.values())
+        if cm["rollup"]["counters"]["jobs_done"] != jobs:
+            raise AssertionError(f"[19] rollup jobs_done {cm['rollup']['counters']} != {jobs}")
+        log(f"[19] /metrics?scope=cluster: 3 members reachable, rollup jobs_done {jobs} = "
+            f"the per-node sum")
+
+        # Stop: SIGTERM drains each node, which exits 0.
+        for n in nodes:
+            n.proc.terminate()
+        for n in nodes:
+            rc = n.proc.wait(120)
+            if rc != 0 or "drain: {'state': 'drained'" not in n.tail(200):
+                raise AssertionError(f"[19] node {n.name} stop: exit {rc}\n{n.tail()}")
+        log("[19] SIGTERM: each node printed its drain line and exited 0")
+    finally:
+        for n in nodes:
+            if n.proc is not None and n.proc.poll() is None:
+                n.proc.kill()
+                n.proc.wait(30)
+    return out
+
+
+def _deep_unsat_board():
+    """HARD_9[1] with one consistent-looking wrong clue: its unsat proof is
+    a search several chunks long that a ring can share."""
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    g = np.asarray(HARD_9[1], np.int32).copy()
+    g[1, 6] = 8
+    return g
+
+
+def phase_offload(dev, attempts: int = 32, chunk_steps: int = 8) -> dict:
+    """(O): two ``ClusterNode``s over TCP on 127.0.0.1 in this process,
+    their engines phase 17's node F (fused, K2) without a resident flight,
+    so static flights have a shed surface, and with ``chunk_steps`` rounds a
+    chunk: the deep unsat board's proof runs 98 rounds, which at node F's
+    64 spans two chunks, and a NEEDWORK is served between chunks, after
+    the next chunk is enqueued, so it finds the proof's rows only in the
+    few boards where it lands inside the first.  The board goes to the
+    first node, slowed by a handicap, until the idle second node has asked
+    for work and run a shed SUBTASK (at most ``attempts`` boards, one
+    after another); every verdict must be the oracle's (unsat)."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch import native
+    from distributed_sudoku_solver_tpu_torch.cluster.node import ClusterConfig, ClusterNode
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.serving.engine import SolverEngine
+    from distributed_sudoku_solver_tpu_torch.serving.megastep import MegastepConfig
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    board = _deep_unsat_board()
+    if native.solve(board)[0] is not None:
+        raise AssertionError("(O): the deep board is not unsat")
+    ccfg = ClusterConfig(heartbeat_s=0.2, fail_factor=64.0, io_timeout_s=2.0, needwork=True,
+                         shed_k=8, progress_interval_s=0.0)
+
+    def node(anchor=None):
+        eng = SolverEngine(config=SolverConfig(step_impl="fused"), max_batch=256,
+                           chunk_steps=chunk_steps, megastep=MegastepConfig(),
+                           device=dev).start()
+        return ClusterNode(eng, host="127.0.0.1", port=0, anchor=anchor, config=ccfg,
+                           advertise_host="127.0.0.1").start()
+
+    n1 = node()
+    n2 = node(n1.addr)
+    try:
+        t0 = time.perf_counter()
+        while len(n1.network) < 2 or len(n2.network) < 2:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("(O): the two nodes never joined")
+            time.sleep(0.05)
+        for n in (n1, n2):
+            w = n.engine.submit(np.asarray(HARD_9[0], np.int32))
+            if not w.wait(300) or not w.solved:
+                raise AssertionError(f"(O) warm-up: {w.error}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        cuda_step.fused_rounds_cuda.launches = 0
+        n1.engine.handicap_s = 0.05
+        walls = []
+        for k in range(attempts):
+            t1 = time.perf_counter()
+            job = n1._submit_local(board)
+            if not job.wait(300):
+                raise AssertionError("(O): the unsat proof never finished")
+            if not job.unsat or job.solved or job.error:
+                raise AssertionError(f"(O): verdict unsat={job.unsat} solved={job.solved} "
+                                     f"error={job.error}, the oracle's is unsat")
+            walls.append((time.perf_counter() - t1) * 1e3)
+            if n1.subtasks_sent >= 1 and n2.subtasks_run >= 1:
+                break
+        n1.engine.handicap_s = 0.0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = cuda_step.fused_rounds_cuda.launches
+        if n1.subtasks_sent < 1 or n2.subtasks_run < 1:
+            raise AssertionError(f"(O): no SUBTASK shed in {attempts} boards (sent "
+                                 f"{n1.subtasks_sent}, run {n2.subtasks_run})")
+        if dev.type == "cuda" and launches <= 0:
+            raise AssertionError("(O): K2 launched no time")
+        out = dict(corpus="deep unsat 9x9 (HARD_9[1] with r1c7=8)", chunk_steps=chunk_steps,
+                   boards=k + 1,
+                   subtasks_sent=n1.subtasks_sent, subtasks_run=n2.subtasks_run,
+                   walls_ms=walls, k2_launches=launches)
+        log(f"[19] (O) offload: {json.dumps(out)}")
+        return out
+    finally:
+        for n in (n1, n2):
+            n.kill()
+            n.engine.stop(timeout=10)
+
+
+def phase_solve_file_cli(corpus, dev) -> dict:
+    """(F): ``cli.main(["solve-file", ...])`` on the corpus as lines; every
+    output line solved, valid and keeping its givens; K2 launched."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch import cli
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step
+    from distributed_sudoku_solver_tpu_torch.utils import dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "boards.txt"), os.path.join(tmp, "solved.txt")
+        dataset.save_boards(src, corpus)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        cuda_step.fused_rounds_cuda.launches = 0
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["solve-file", src, "-o", dst], device=None if dev.type == "cuda" else dev)
+        wall = time.perf_counter() - t1
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = cuda_step.fused_rounds_cuda.launches
+        stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+        sols = dataset.load_boards(dst, SUDOKU_9)
+    if stats["total"] != len(corpus) or stats["solved"] != len(corpus) or stats["unsat"] or \
+            len(sols) != len(corpus):
+        raise AssertionError(f"(F) solve-file: {stats}, {len(sols)} lines")
+    check_solutions(corpus, sols, np.ones(len(sols), bool), np.zeros(len(sols), bool),
+                    "(F) solve-file")
+    if dev.type == "cuda" and launches <= 0:
+        raise AssertionError("(F) solve-file launched K2 no time")
+    out = dict(boards=len(corpus), wall_s=wall, boards_per_s=len(corpus) / wall,
+               cli_stats=stats, k2_launches=launches)
+    log(f"[19] (F) solve-file through cli.main: {json.dumps(out)}")
+    return out
+
+
+def phase_cluster(corpus, device, sizes, dev, node_cmd=None) -> dict:
+    """Phase 19: ring R (three CLI node processes), then, in this process,
+    (F) ``solve-file`` through ``cli.main`` and (O) the NEEDWORK offload.
+    Returns K2's launches on (F) and (O)."""
+    t0 = time.perf_counter()
+    ring = phase_ring(corpus, device, sizes, node_cmd)
+    f = phase_solve_file_cli(corpus, dev)
+    o = phase_offload(dev)
+    log(f"[19] {device['smi']}; phase wall {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"cluster": {"ring": ring, "solve_file": f, "offload": o,
+                                "card": device["smi"]}}))
+    return {"K2": f["k2_launches"] + o["k2_launches"]}
+
+
 def kernel_row(key: str, suffix: str = "", **fields) -> dict:
     name, source, replaces = KERNELS[key]
     return dict(name=name + suffix, route="cuda",
@@ -2198,6 +2687,8 @@ def main(argv=None) -> int:
                          "phase only (no result line)")
     ap.add_argument("--frontdoor", action="store_true",
                     help="phases 1-3 and the front-door phase (18) only (no result line)")
+    ap.add_argument("--cluster", action="store_true",
+                    help="phases 1-3 and the cluster phase (19) only (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2232,6 +2723,9 @@ def main(argv=None) -> int:
     if args.frontdoor:
         phase_frontdoor(corpus, device, SIZES, dev)
         return 0
+    if args.cluster:
+        phase_cluster(corpus, device, SIZES, dev)
+        return 0
     k1 = phase_k1(corpus, SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
     phase_breakdown(corpus, SIZES, dev)
@@ -2254,11 +2748,13 @@ def main(argv=None) -> int:
     pcv = phase_pcv(SIZES, dev)
     serving = phase_serving(corpus, minrem_nodes, device, SIZES, dev)
     frontdoor = phase_frontdoor(corpus, device, SIZES, dev)
-    log(f"[19] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
+    cluster = phase_cluster(corpus, device, SIZES, dev)
+    log(f"[20] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
         f"{build_s:.1f} s")
     kernels = [
         kernel_row("K1", launches=comp_launches["K1"] + serving["K1"], **k1),
-        kernel_row("K2", launches=main_launches["K2"] + serving["K2"] + frontdoor["K2"], **k2),
+        kernel_row("K2", launches=main_launches["K2"] + serving["K2"] + frontdoor["K2"]
+                   + cluster["K2"], **k2),
         kernel_row("K3", launches=sum(cover_launches.values()), max_abs_err=k3_err,
                    **k3_rows["pentomino6x10"]),
     ]

@@ -40,7 +40,7 @@ from distributed_sudoku_solver_tpu_torch.ops.bitmask import (
     to_boxes,
 )
 from distributed_sudoku_solver_tpu_torch.ops.solve import resolve_device
-from distributed_sudoku_solver_tpu_torch.utils.puzzles import make_puzzle
+from distributed_sudoku_solver_tpu_torch.utils.puzzles import puzzle_batch
 
 _BITS = {torch.int32: 32, torch.int16: 16}
 _P = ctypes.c_void_p
@@ -144,14 +144,13 @@ def fixpoint_probe(cand_t: torch.Tensor, max_sweeps: int = 64) -> torch.Tensor:
 
 
 def probe_boards(batch: int, seed: int = 7, n_clues: int = 24, distinct: int = 512) -> torch.Tensor:
-    """The probe's input: ``distinct`` carved ``n_clues``-clue 9x9 boards
-    (seeds ``seed``..), tiled to ``batch``, encoded boards-last int32
-    ``[9, 9, batch]``.  The boards are carved with ``unique=False``, so each
-    keeps its parent solution; the JAX probe carves unique boards
-    (``puzzle_batch``), which the port's native oracle now also makes at
-    speed (ROADMAP C-watch)."""
-    base = np.stack([make_puzzle(SUDOKU_9, seed + i, n_clues=n_clues, unique=False)
-                     for i in range(min(distinct, batch))])
+    """The probe's input, the JAX probe's corpus: ``distinct`` unique-
+    solution ``n_clues``-clue 9x9 boards (``puzzle_batch``, seeds
+    ``seed``..), tiled to ``batch``, encoded boards-last int32
+    ``[9, 9, batch]``.  At a ``batch`` that is a multiple of ``distinct``
+    the tensor equals the JAX probe's (``benchmarks/probe_uint16.py``); a
+    smaller ``batch`` takes the first ``batch`` of its boards."""
+    base = puzzle_batch(SUDOKU_9, min(distinct, batch), seed=seed, n_clues=n_clues)
     grids = base[np.arange(batch) % len(base)].astype(np.int32)
     return encode_grid(torch.from_numpy(grids), SUDOKU_9).permute(1, 2, 0).contiguous()
 

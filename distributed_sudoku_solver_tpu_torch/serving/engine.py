@@ -753,6 +753,18 @@ class SolverEngine:
             self._resident[geom] = rf
             return rf
 
+    def job_is_resident(self, job_uuid: str) -> bool:
+        """Whether a job is queued/running in a resident flight (resident
+        jobs have no snapshot/shed surface — the cluster's progress loop
+        skips them instead of polling a permanent None)."""
+        for rf in self._resident_flights():
+            with rf._lock:
+                if any(j.uuid == job_uuid for j in rf._pending):
+                    return True
+            if any(j is not None and j.uuid == job_uuid for j in rf.slots):
+                return True
+        return False
+
     def _enqueue(self, job: Job) -> None:
         # Lock-ordered with stop()'s final drain.
         with self._lock:

@@ -27,8 +27,12 @@ Port of the JAX package's ``serving/http.py``:
   ``GET /trace[/<uuid>]`` (``?analyze=1``, ``?limit``, ``?format=perfetto``).
 
 The cluster scopes (``?scope=cluster``, ``?scope=dht``) belong to the
-cluster node, ROADMAP A11; this single node answers them as the JAX
-package's standalone node does (a one-member cluster view, 404 for DHT).
+cluster node (``cluster/node.ClusterNode``): ``?scope=cluster`` fans a
+METRICS_PULL over the ring and merges the members' bodies, ``?scope=dht``
+shows the gossip view, the hash ring and the cache shard.  A standalone
+node answers them as the JAX package's does (a one-member cluster view,
+404 for DHT).  On a cluster node the portfolio's racers spread over the
+members (``ClusterNode.race``).
 """
 
 from __future__ import annotations
@@ -120,13 +124,8 @@ class _Handler(BaseHTTPRequestHandler):
             return self._solve_count_all(node, g, start, timeout, config=config)
         strategy = None
         if payload.get("portfolio"):
-            from distributed_sudoku_solver_tpu_torch.serving.portfolio import (
-                DEFAULT_PORTFOLIO,
-                race,
-            )
-
             try:
-                res = race(node.engine, grid, DEFAULT_PORTFOLIO, timeout=timeout)
+                res = self._race(node, grid, timeout)
             except ValueError as e:
                 return self._send(400, {"error": str(e)})
             if res.winner is None:
@@ -242,6 +241,19 @@ class _Handler(BaseHTTPRequestHandler):
         }
         self._record_solve(node, body["duration"], 200)
         return self._send(200, body)
+
+    @staticmethod
+    def _race(node, grid, timeout):
+        """Race the default portfolio: over the members on a cluster node
+        (``ClusterNode.race``), on the local engine otherwise."""
+        from distributed_sudoku_solver_tpu_torch.serving.portfolio import (
+            DEFAULT_PORTFOLIO,
+            race,
+        )
+
+        if hasattr(node, "race"):
+            return node.race(grid, DEFAULT_PORTFOLIO, timeout=timeout)
+        return race(node.engine, grid, DEFAULT_PORTFOLIO, timeout=timeout)
 
     def _solve_batch(self):
         from distributed_sudoku_solver_tpu_torch.models.geometry import geometry_for_size

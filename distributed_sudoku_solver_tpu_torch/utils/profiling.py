@@ -16,7 +16,7 @@ import contextlib
 import logging
 import os
 import threading
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -71,9 +71,12 @@ def profile_window_active() -> bool:
         return _window is not None
 
 
-def start_profile_window(logdir: str, secs: float) -> bool:
+def start_profile_window(
+    logdir: str, secs: float, on_close: Optional[Callable[[], None]] = None
+) -> bool:
     """Start a ``torch.profiler`` capture into ``logdir`` that stops itself
-    after ``secs``.  False if a window is already open (the caller answers
+    after ``secs``, then calls ``on_close`` (the CLI's ``--profile-secs``
+    prints a line).  False if a window is already open (the caller answers
     409); the profiler's own error propagates if the start fails (another
     profiler already running in the process).
 
@@ -102,6 +105,8 @@ def start_profile_window(logdir: str, secs: float) -> bool:
             _stop_and_export(prof, logdir)
             with _window_lock:
                 _window = None
+            if on_close is not None:
+                on_close()
 
         thread = threading.Thread(target=run, daemon=True, name="profile-window")
         thread.start()

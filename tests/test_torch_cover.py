@@ -44,6 +44,17 @@ INSTANCES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain torch paths here are many small ops: under parallel test
+    workers on a small host, torch's default thread pool per process
+    oversubscribes the cores and slows them by orders of magnitude."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _as_i32(a):
     a = np.asarray(a)
     return a.view(np.int32) if a.dtype == np.uint32 else a

@@ -46,6 +46,17 @@ INSTANCES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain torch paths here are many small ops: under parallel test
+    workers on a small host, torch's default thread pool per process
+    oversubscribes the cores and slows them by orders of magnitude."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _random_states(jp, count, max_rows, rng):
     """``count`` states, each with up to ``max_rows`` random compatible rows taken."""
     elim = jcover._unpack_bits(jp.elim, jp.n_rows)

@@ -14,6 +14,7 @@ The JAX probes are imported inside the tests that use them: the card
 machine runs the ``cuda`` tests without JAX.
 """
 
+import functools
 import importlib
 import sys
 from pathlib import Path
@@ -35,9 +36,18 @@ def _jax_probe(name):
         sys.path.remove(str(REPO / "benchmarks"))
 
 
-def _p16_inputs(seed=5):
-    """256 carved boards, then 128 random 9-bit masks, 5 % of cells empty."""
+@functools.lru_cache(maxsize=None)
+def _p16_boards() -> np.ndarray:
+    """The probe's first 256 boards (unique puzzles: carving them costs
+    seconds, so once per module)."""
     boards = uint16.probe_boards(256).numpy().view(np.uint32)
+    boards.setflags(write=False)
+    return boards
+
+
+def _p16_inputs(seed=5):
+    """256 probe boards, then 128 random 9-bit masks, 5 % of cells empty."""
+    boards = _p16_boards()
     rng = np.random.default_rng(seed)
     rand = rng.integers(0, 512, size=(9, 9, 128)).astype(np.uint32)
     rand[rng.random(rand.shape) < 0.05] = 0
@@ -97,6 +107,28 @@ def test_p16_capped_fixpoint_is_single_sweeps_in_turn(max_sweeps):
         step = uint16.fixpoint_probe_plain(step, 1)
     assert torch.equal(got, step)
     assert int(sweeps.max()) == max_sweeps
+
+
+def test_p16_corpus_is_the_jax_probes():
+    """The probe's boards are the JAX probe's corpus
+    (``puzzle_batch(SUDOKU_9, 512, seed=7, n_clues=24)``, unique solutions),
+    encoded boards-last: checked on its first 16 boards and tiled past them."""
+    import jax.numpy as jnp
+
+    from distributed_sudoku_solver_tpu.models.geometry import SUDOKU_9 as JSUDOKU_9
+    from distributed_sudoku_solver_tpu.ops.bitmask import encode_grid as jencode_grid
+    from distributed_sudoku_solver_tpu.utils.oracle import count_solutions
+    from distributed_sudoku_solver_tpu.utils.puzzles import puzzle_batch as jpuzzle_batch
+
+    base = jpuzzle_batch(JSUDOKU_9, 16, seed=7, n_clues=24)
+    want = np.asarray(jencode_grid(jnp.asarray(base), JSUDOKU_9), np.uint32).transpose(1, 2, 0)
+    got = uint16.probe_boards(16).numpy().view(np.uint32)
+    assert got.shape == (9, 9, 16)
+    assert np.array_equal(got, want)
+    tiled = uint16.probe_boards(48, distinct=16).numpy().view(np.uint32)
+    assert np.array_equal(tiled, np.concatenate([want] * 3, axis=-1))
+    assert all((b > 0).sum() >= 24 for b in base)  # carving stops where uniqueness would break
+    assert count_solutions(base[0], JSUDOKU_9, limit=2) == 1
 
 
 def test_p16_entry_point_runs_on_cpu_when_asked():

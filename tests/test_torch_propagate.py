@@ -27,6 +27,17 @@ tp = importlib.import_module("distributed_sudoku_solver_tpu_torch.ops.propagate"
 GEOMS = [(2, 2), (2, 3), (3, 3)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain torch paths here are many small ops: under parallel test
+    workers on a small host, torch's default thread pool per process
+    oversubscribes the cores and slows them by orders of magnitude."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _boards(bh, bw, count=24, seed=0):
     """Carved puzzles at ~30% clues plus random masks (mostly contradictory)."""
     jg = JGeometry(bh, bw)

@@ -39,6 +39,17 @@ FIELDS = ("solution", "solved", "unsat", "overflowed", "nodes", "sol_count", "st
           "sweeps", "expansions", "steals")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain torch paths here are many small ops: under parallel test
+    workers on a small host, torch's default thread pool per process
+    oversubscribes the cores and slows them by orders of magnitude."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _grids(bh, bw, count, seed, frac=0.3):
     jg = JGeometry(bh, bw)
     n = jg.n
