@@ -10,6 +10,7 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py --serving      # phases 1-3, 12 and the serving phase (17) only
     python3 chip_smoke.py --frontdoor    # phases 1-3 and the front-door phase (18) only
     python3 chip_smoke.py --cluster      # phases 1-3 and the cluster phase (19) only
+    python3 chip_smoke.py --mesh         # phases 1-3 and the mesh phase (20) only
 
 Phases, each of which must pass (nothing is caught and skipped):
 
@@ -174,12 +175,42 @@ Phases, each of which must pass (nothing is caught and skipped):
    oracle's, K2 launched.  Printed: requests/s and p50 / p95 / p99 per
    pass, the detection and rejoin walls, re-executions, resumes, SUBTASK
    counts, the DHT counters, ``solve-file``'s boards/s;
-20. the seconds the script took, the build's among them, then one JSON
+20. the mesh: four shards on the one card (``parallel.virtual_devices(4)``;
+   every shard launches its own kernels on its own lane block, and every
+   round runs the collectives between the shards; cross-card copies are
+   not measured).  (a) ``solve_batch_sharded`` on 4,096 corpus boards with
+   ``SolverConfig()``: solved and unsat bit-equal to ``solve_batch``'s,
+   every solution valid and bit-equal wherever the board has one solution
+   (the native oracle counts them); HARD_9[0] among 63 copies of EASY_9
+   must be solved through the ring steal (steals and ring rows above 0);
+   the 4,096 boards again with ``propagator="pallas"``: K1 launched on
+   every shard every round, verdicts equal.  (b) ``solve_batch_fused_
+   sharded`` on 32,768 corpus boards at phase 5's shape (S=12, extended,
+   minrem) against the single-device fused solve, as in (a); K2 launched at
+   least 4 times per round, ring rows above 0; wall, boards/s, rounds and
+   host syncs per round.  (c) the same on 1,024 boards through K2 and
+   with the plain rounds on the card: every field equal.  (d)
+   ``solve_csp_fused_sharded`` at phase 9's width: n-queens 14 must count
+   365,596 and pentomino 6x10 9,356, K3 launched; walls beside phase 9's.
+   (e) ``solve_bulk(corpus, SUDOKU_9, BulkConfig(), mesh=mesh)``: every
+   solution valid with its givens, none unsat; boards/s beside phase 6's.
+   (f) an engine with ``ResidentConfig(job_slots=16, gang_lanes=8,
+   mesh_devices=4)`` serves 512 corpus boards and HARD_9 on a
+   ``MeshResidentFlight``: solutions equal a single-device engine's (64
+   slots), ``mesh_unfit`` 0, ring rows shipped, one ``status`` fetch per
+   chunk; outside the virtual devices the same config on the one card
+   counts ``mesh_unfit`` and serves.  (g) ``solve_batch_banded`` on the
+   four shards, HARD_9 and one 25x25 board, every field bit-exact against
+   ``solve_batch``.  (h) ``cli.main([..., "--sharded"])`` in process
+   answers ``POST /solve`` through ``solve_batch_sharded`` over
+   ``default_mesh()`` (one card);
+21. the seconds the script took, the build's among them, then one JSON
    line ``{"kernels": [...]}`` (launches on the paths, times at the path's
    shape, the plain version's time, the bound; K2 once more for each
    head, P16 once per mask width; K1's and K2's launches include the
-   serving phase's, K2's the front-door and cluster phases' too);
-21. the last line, ``{"ok": true, "device": {...}}``.
+   serving and mesh phases', K2's the front-door and cluster phases' too,
+   K3's the mesh phase's);
+22. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -213,7 +244,9 @@ SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, com
              flight_extra=2, snapshot_boards=4096, snapshot_chunk=8, probe_boards=65536,
              probe_iters=16, serving_mass=1024, serving_clients=32, serving_burst=200,
              serving_static=256, serving_bulk=4096, frontdoor_unique=1024, frontdoor_unsat=8,
-             cluster_unique=1024, cluster_crash=256, cluster_bulk=4096)
+             cluster_unique=1024, cluster_crash=256, cluster_bulk=4096, mesh_shards=4,
+             mesh_composite=4096, mesh_steal_easy=63, mesh_k2=32768, mesh_k2_plain=1024,
+             mesh_resident=512)
 
 HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
 
@@ -807,6 +840,7 @@ def phase_main(corpus, dev):
             raise AssertionError(f"bulk: HARD_9[{i}] differs from the oracle's solution")
     if launches["K2"] <= 0:
         raise AssertionError("bulk main path launched K2 no time")
+    SINGLE_DEVICE["bulk boards/s"] = len(corpus) / wall
     log(f"[6] bulk pass 2 (inflight=3): {len(corpus)} boards in {wall:.3f} s = "
         f"{len(corpus) / wall:.1f} boards/s; searched {res.searched}, by propagation "
         f"{int(res.by_propagation.sum())}; launches {launches}")
@@ -1060,6 +1094,7 @@ def phase_cover_main(dev):
             raise AssertionError(f"{name}: K3 launched {n} times, K1/K2 {others} times")
         _check_cover_solution(name, problem, res.solution[0])
         launches[name] = n
+        SINGLE_DEVICE[f"cover {name}"] = wall
         log(f"[9] {name} run 2: {count} solutions in {wall:.3f} s = {count / wall:.1f} "
             f"solutions/s; dispatches {n}, steps {int(res.steps)}, nodes "
             f"{int(res.nodes[0])}, sweeps {int(res.sweeps)}, steals {int(res.steals)}")
@@ -2657,6 +2692,482 @@ def phase_cluster(corpus, device, sizes, dev, node_cmd=None) -> dict:
     return {"K2": f["k2_launches"] + o["k2_launches"]}
 
 
+# -- phase 20: the mesh ----------------------------------------------------------
+
+# Readings that phase 20 prints beside its own: phase 6's bulk boards/s and
+# phase 9's cover walls (absent under --mesh, which skips those phases).
+SINGLE_DEVICE: dict = {}
+
+
+def _wrap(module, name: str, make):
+    """Swap ``module.name`` for ``make(original)``; returns the undo."""
+    orig = getattr(module, name)
+    setattr(module, name, make(orig))
+    return lambda: setattr(module, name, orig)
+
+
+def _ring_rows(module):
+    """Count the rows each ring steal of ``module`` installs, on the device:
+    ``(undo, total)``, ``total()`` one host read after the run."""
+    import torch
+
+    got: list = []
+
+    def make(orig):
+        def counting(*args, **kw):
+            out = orig(*args, **kw)
+            got.append(torch.stack([n.to(out[0][0].device) for n in out[5]]).sum())
+            return out
+        return counting
+
+    undo = _wrap(module, "_ring_steal", make)
+    return undo, lambda: int(torch.stack(got).sum()) if got else 0
+
+
+def _same_solutions(grids, got, want, what: str) -> int:
+    """Every solution in ``got`` valid and keeping its givens, and equal to
+    ``want``'s wherever the board has exactly one solution (the native
+    oracle counts up to two): a board with several keeps the first one a
+    lane finds, and which lane that is depends on how the lanes are cut
+    into shards.  Returns how many multi-solution boards differ."""
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch import native
+
+    n = len(grids)
+    check_solutions(grids, got, np.ones(n, bool), np.zeros(n, bool), what)
+    differ = np.flatnonzero((got != want).reshape(n, -1).any(1))
+    if any(native.count_solutions(grids[i], limit=2) == 1 for i in differ):
+        raise AssertionError(f"{what}: a board with one solution came back with another")
+    return len(differ)
+
+
+def _verdicts_match(grids, got, want, what: str) -> dict:
+    """``solved`` and ``unsat`` bit-equal to the single-device result's,
+    the solutions as :func:`_same_solutions` holds them."""
+    import numpy as np
+
+    g = {f: getattr(got, f).cpu().numpy() for f in ("solution", "solved", "unsat")}
+    w = {f: getattr(want, f).cpu().numpy() for f in ("solution", "solved", "unsat")}
+    for f in ("solved", "unsat"):
+        if not np.array_equal(g[f], w[f]):
+            raise AssertionError(f"{what}: {f} differs from the single-device solve")
+    check_solutions(grids, g["solution"], g["solved"], g["unsat"], what)
+    return {"boards": len(grids), "solutions_differ_on_multi_solution_boards":
+            _same_solutions(grids, g["solution"], w["solution"], what)}
+
+
+def _mesh_composite(mesh, corpus, sizes, dev, on_card) -> dict:
+    """(a): ``solve_batch_sharded`` with ``SolverConfig()``, then one hard
+    board among easy ones (the ring steal), then ``propagator="pallas"``."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch
+    from distributed_sudoku_solver_tpu_torch.parallel import sharded, solve_batch_sharded
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import EASY_9, HARD_9
+
+    grids = corpus[: sizes["mesh_composite"]]
+    single = solve_batch(grids, SUDOKU_9, SolverConfig(), device=dev)
+    solve_batch_sharded(grids[:256], SUDOKU_9, SolverConfig(), mesh=mesh)  # warm-up
+    syncs: dict = {}
+    t0 = time.perf_counter()
+    res = _count_syncs(lambda: solve_batch_sharded(grids, SUDOKU_9, SolverConfig(), mesh=mesh),
+                       syncs if on_card else None, "solve")
+    _sync(on_card)
+    wall = time.perf_counter() - t0
+    out = {"xla": {**_verdicts_match(grids, res, single, "(a) composite"), "wall_s": wall,
+                   "steps": int(res.steps), "steals": int(res.steals),
+                   "host_syncs": syncs.get("solve", 0)}}
+
+    lonely = np.stack([HARD_9[0]] + [EASY_9] * (sizes["mesh_steal_easy"])).astype(np.int32)
+    undo, rows = _ring_rows(sharded)
+    try:
+        r = solve_batch_sharded(lonely, SUDOKU_9, SolverConfig(), mesh=mesh)
+    finally:
+        undo()
+    if not bool(r.solved.all()) or int(r.steals) <= 0 or rows() <= 0:
+        raise AssertionError(f"(a) one hard board: solved {bool(r.solved.all())}, steals "
+                             f"{int(r.steals)}, ring rows {rows()}")
+    if not np.array_equal(r.solution[0].cpu().numpy(), hard9_solutions()[0]):
+        raise AssertionError("(a) HARD_9[0] differs from the oracle's solution")
+    out["one_hard"] = {"steals": int(r.steals), "ring_rows": rows(), "steps": int(r.steps)}
+
+    cfg = SolverConfig(propagator="pallas")
+    cuda_propagate.propagate_fixpoint_cuda.launches = 0
+    syncs = {}
+    t0 = time.perf_counter()
+    rp = _count_syncs(lambda: solve_batch_sharded(grids, SUDOKU_9, cfg, mesh=mesh),
+                      syncs if on_card else None, "solve")
+    _sync(on_card)
+    wall = time.perf_counter() - t0
+    k1 = cuda_propagate.propagate_fixpoint_cuda.launches
+    if on_card and k1 < mesh.size * int(rp.steps):
+        raise AssertionError(f"(a) pallas: K1 launched {k1} times over {int(rp.steps)} rounds")
+    for f in ("solution", "solved", "unsat"):
+        if not torch.equal(getattr(rp, f), getattr(res, f)):
+            raise AssertionError(f"(a) pallas: {f} differs from the xla mesh solve")
+    out["pallas"] = {"wall_s": wall, "steps": int(rp.steps), "k1_launches": k1,
+                     "host_syncs": syncs.get("solve", 0)}
+    log(f"[20] (a) composite on {mesh.size} shards: {json.dumps(out)}")
+    return {"K1": k1, **out}
+
+
+def _sync(on_card: bool) -> None:
+    import torch
+
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def _fused_cfg():
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+
+    # Phase 5's shape (the bulk first pass's kernel: S=12, extended, minrem).
+    return SolverConfig(step_impl="fused", stack_slots=12, rules="extended", branch="minrem")
+
+
+def _mesh_k2(mesh, corpus, sizes, dev, on_card) -> dict:
+    """(b): ``solve_batch_fused_sharded`` on phase 5's shape against the
+    single-device fused solve; K2's launches, ring rows, syncs per round."""
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch
+    from distributed_sudoku_solver_tpu_torch.parallel import fused_sharded
+    from distributed_sudoku_solver_tpu_torch.parallel import solve_batch_fused_sharded
+
+    grids = corpus[: sizes["mesh_k2"]]
+    single = solve_batch(grids, SUDOKU_9, _fused_cfg(), device=dev)
+    solve_batch_fused_sharded(grids[:1024], SUDOKU_9, _fused_cfg(), mesh=mesh)  # warm-up
+    _sync(on_card)
+    rounds = [0]
+
+    def make(orig):
+        def counting(*args, **kw):
+            rounds[0] += 1
+            return orig(*args, **kw)
+        return counting
+
+    undo_rounds = _wrap(fused_sharded, "_fused_round_sharded", make)
+    undo_ring, ring_rows = _ring_rows(fused_sharded)
+    syncs: dict = {}
+    try:
+        cuda_step.fused_rounds_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = _count_syncs(lambda: solve_batch_fused_sharded(grids, SUDOKU_9, _fused_cfg(),
+                                                             mesh=mesh),
+                           syncs if on_card else None, "solve")
+        _sync(on_card)
+        wall = time.perf_counter() - t0
+        k2 = cuda_step.fused_rounds_cuda.launches
+    finally:
+        undo_rounds()
+        undo_ring()
+    out = {**_verdicts_match(grids, res, single, "(b) K2 mesh"), "wall_s": wall,
+           "boards_per_s": len(grids) / wall, "rounds": rounds[0], "k2_launches": k2,
+           "ring_rows": ring_rows(), "host_syncs": syncs.get("solve", 0),
+           "syncs_per_round": syncs.get("solve", 0) / max(rounds[0], 1),
+           "steps": int(res.steps), "steals": int(res.steals)}
+    if on_card and k2 < mesh.size * rounds[0]:
+        raise AssertionError(f"(b) K2 launched {k2} times over {rounds[0]} rounds")
+    if out["ring_rows"] <= 0:
+        raise AssertionError("(b) the ring shipped no row")
+    log(f"[20] (b) K2 on {mesh.size} shards: {json.dumps(out)}")
+    return {"K2": k2, **out}
+
+
+def _mesh_k2_plain(mesh, corpus, sizes, dev, on_card) -> dict:
+    """(c): the sharded fused solve through K2, then with the plain rounds
+    on the card; every field equal."""
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_step
+    from distributed_sudoku_solver_tpu_torch.parallel import solve_batch_fused_sharded
+
+    grids = corpus[: sizes["mesh_k2_plain"]]
+    cuda_step.fused_rounds_cuda.launches = 0
+    got = solve_batch_fused_sharded(grids, SUDOKU_9, _fused_cfg(), mesh=mesh)
+    k2 = cuda_step.fused_rounds_cuda.launches
+    undo = _wrap(cuda_step, "fused_rounds", lambda orig: cuda_step.fused_rounds_plain)
+    try:
+        want = solve_batch_fused_sharded(grids, SUDOKU_9, _fused_cfg(), mesh=mesh)
+    finally:
+        undo()
+    _sync(on_card)
+    err = max(max_abs_err(getattr(got, f), getattr(want, f)) for f in want._fields)
+    if err or (on_card and (k2 <= 0 or cuda_step.fused_rounds_cuda.launches != k2)):
+        raise AssertionError(f"(c) sharded K2 against plain: max_abs_err {err}, launches {k2}")
+    out = {"boards": len(grids), "shard_lanes": len(grids) // mesh.size, "max_abs_err": err,
+           "kernel_launches": k2}
+    log(f"[20] (c) sharded K2 against its plain rounds: {json.dumps(out)}")
+    return out
+
+
+def _mesh_k3(mesh, dev, on_card) -> dict:
+    """(d): ``solve_csp_fused_sharded`` at phase 9's width; exact counts."""
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover
+    from distributed_sudoku_solver_tpu_torch.parallel import solve_csp_fused_sharded
+
+    out, k3 = {}, 0
+    for name, problem, roots in cover_instances(full=False):
+        cuda_cover.cover_fused_rounds_cuda.launches = 0
+        syncs: dict = {}
+        t0 = time.perf_counter()
+        res = _count_syncs(lambda: solve_csp_fused_sharded(roots, problem, cover_config(),
+                                                           mesh=mesh),
+                           syncs if on_card else None, "solve")
+        _sync(on_card)
+        wall = time.perf_counter() - t0
+        n = cuda_cover.cover_fused_rounds_cuda.launches
+        count = int(res.sol_count[0])
+        if count != COVER_COUNTS[name] or not bool(res.unsat[0]) or bool(res.overflowed[0]):
+            raise AssertionError(f"(d) {name}: counted {count} (expected "
+                                 f"{COVER_COUNTS[name]}), unsat {bool(res.unsat[0])}, "
+                                 f"overflowed {bool(res.overflowed[0])}")
+        if on_card and n < mesh.size:
+            raise AssertionError(f"(d) {name}: K3 launched {n} times")
+        k3 += n
+        rounds = n // mesh.size
+        out[name] = {"count": count, "wall_s": wall, "k3_launches": n, "rounds": rounds,
+                     "host_syncs": syncs.get("solve", 0),
+                     "syncs_per_round": syncs.get("solve", 0) / max(rounds, 1),
+                     "steps": int(res.steps), "steals": int(res.steals),
+                     "single_device_wall_s": SINGLE_DEVICE.get(f"cover {name}", "not run")}
+    log(f"[20] (d) K3 on {mesh.size} shards: {json.dumps(out)}")
+    return {"K3": k3, **out}
+
+
+def _mesh_bulk(mesh, corpus, dev, on_card) -> dict:
+    """(e): ``solve_bulk(..., mesh=mesh)`` over the whole corpus."""
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.bulk import BulkConfig, solve_bulk
+
+    cuda_step.fused_rounds_cuda.launches = 0
+    cuda_propagate.propagate_fixpoint_cuda.launches = 0
+    trace: dict = {}
+    t0 = time.perf_counter()
+    res = solve_bulk(corpus, SUDOKU_9, BulkConfig(), mesh=mesh, trace=trace)
+    _sync(on_card)
+    wall = time.perf_counter() - t0
+    launches = {"K2": cuda_step.fused_rounds_cuda.launches,
+                "K1": cuda_propagate.propagate_fixpoint_cuda.launches}
+    check_solutions(corpus, res.solution, res.solved, res.unsat, "(e) bulk mesh")
+    if on_card and launches["K2"] <= 0:
+        raise AssertionError("(e) the bulk mesh path launched K2 no time")
+    out = {"boards": len(corpus), "wall_s": wall, "boards_per_s": len(corpus) / wall,
+           "what": f"{mesh.size} virtual shards on one card",
+           "single_device_boards_per_s": SINGLE_DEVICE.get("bulk boards/s", "not run"),
+           "launches": launches, "remaining_after_first": trace["remaining_after_first"],
+           "rungs": [{k: r[k] for k in ("lanes", "dispatches", "survivors_in", "survivors_out",
+                                        "wall_s")} for r in trace["rungs"]]}
+    log(f"[20] (e) bulk on {mesh.size} shards: {json.dumps(out)}")
+    return {"K1": launches["K1"], "K2": launches["K2"], **out}
+
+
+def _mesh_resident(corpus, sizes, dev, on_card) -> dict:
+    """(f): the mesh-resident flight inside ``virtual_devices(4)`` against a
+    single-device engine; then ``mesh_devices=4`` on the one card outside
+    it, which must count ``mesh_unfit`` and still serve."""
+    import numpy as np
+
+    import distributed_sudoku_solver_tpu_torch.serving.engine as engine_mod
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.parallel import virtual_devices
+    from distributed_sudoku_solver_tpu_torch.serving.engine import SolverEngine
+    from distributed_sudoku_solver_tpu_torch.serving.mesh_scheduler import MeshResidentFlight
+    from distributed_sudoku_solver_tpu_torch.serving.scheduler import ResidentConfig
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    boards = [np.asarray(h) for h in HARD_9] + list(corpus[len(HARD_9):sizes["mesh_resident"]
+                                                          + len(HARD_9)])
+    shards = sizes["mesh_shards"]
+
+    def serve(rc, count_fetches: bool):
+        tags: list = []
+        orig = engine_mod.host_fetch
+
+        def counting(x, floor_s=0.0, tag="status"):
+            tags.append(tag)
+            return orig(x, floor_s=floor_s, tag=tag)
+
+        if count_fetches:
+            engine_mod.host_fetch = counting
+        eng = SolverEngine(config=SolverConfig(), resident=rc, device=dev).start()
+        try:
+            t0 = time.perf_counter()
+            jobs = [eng.submit(b) for b in boards]
+            for j in jobs:
+                if not j.wait(600) or not j.solved:
+                    raise AssertionError(f"(f) a job failed: {j.error} {j.last_fault}")
+            wall = time.perf_counter() - t0
+            rf = eng._resident[SUDOKU_9]
+            deadline = time.monotonic() + 60
+            while any(s is not None for s in rf.slots) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            return jobs, wall, rf, eng.metrics(), list(tags)
+        finally:
+            eng.stop(timeout=5)
+            engine_mod.host_fetch = orig
+
+    # A queue that holds every board, so no submit overflows to a static
+    # flight (whose chunks would add status fetches of their own).
+    depth = len(boards)
+    single_jobs, single_wall, _, _, _ = serve(
+        ResidentConfig(job_slots=16 * shards, gang_lanes=8, queue_depth=depth), False)
+    with virtual_devices(shards):
+        jobs, wall, rf, m, tags = serve(
+            ResidentConfig(job_slots=16, gang_lanes=8, queue_depth=depth, mesh_devices=shards),
+            True)
+    if not isinstance(rf, MeshResidentFlight):
+        raise AssertionError(f"(f) the engine built a {type(rf).__name__}")
+    differ = _same_solutions(np.stack(boards).astype(np.int32),
+                             np.stack([j.solution for j in jobs]),
+                             np.stack([j.solution for j in single_jobs]), "(f) mesh flight")
+    mesh_m = m["resident"]["9x9"]["mesh"]
+    if m["resident"]["9x9"]["admitted"] != len(boards):
+        raise AssertionError(f"(f) {m['resident']['9x9']['admitted']} of {len(boards)} admitted")
+    if m.get("mesh_unfit", 0) or mesh_m["ring_shipped"] <= 0:
+        raise AssertionError(f"(f) mesh_unfit {m.get('mesh_unfit', 0)}, mesh {mesh_m}")
+    if tags.count("status") != rf.chunks:
+        raise AssertionError(f"(f) {tags.count('status')} status fetches for {rf.chunks} chunks")
+    out = {"boards": len(boards), "solutions_differ_on_multi_solution_boards": differ,
+           "wall_s": wall, "single_device_wall_s": single_wall,
+           "chunks": rf.chunks, "status_fetches": tags.count("status"),
+           "event_fetches": tags.count("event"), "mesh": mesh_m}
+    unfit_jobs, _, rf1, m1, _ = serve(
+        ResidentConfig(job_slots=16, gang_lanes=8, mesh_devices=shards), False)
+    if isinstance(rf1, MeshResidentFlight) or m1.get("mesh_unfit", 0) < 1:
+        raise AssertionError("(f) mesh_devices=4 on one card did not fall back (mesh_unfit)")
+    out["one_card_mesh_unfit"] = m1["mesh_unfit"]
+    log(f"[20] (f) mesh-resident flight: {json.dumps(out)}")
+    return out
+
+
+def _mesh_banded(mesh, dev) -> dict:
+    """(g): ``solve_batch_banded``: HARD_9 and a 25x25 board, every field
+    bit-exact against the single-device ``solve_batch``."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, SUDOKU_25
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_batch
+    from distributed_sudoku_solver_tpu_torch.parallel import make_band_mesh, solve_batch_banded
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, make_puzzle
+
+    band = make_band_mesh(mesh.devices)
+    out = {}
+    for name, geom, grids, cfg in (
+            ("9x9", SUDOKU_9, np.stack(HARD_9).astype(np.int32),
+             SolverConfig(min_lanes=8, stack_slots=32, max_steps=4096, rules="extended")),
+            ("25x25", SUDOKU_25, make_puzzle(SUDOKU_25, seed=3, n_clues=480, unique=False)[None],
+             SolverConfig(min_lanes=4, stack_slots=48, max_steps=50_000))):
+        ref = solve_batch(grids, geom, cfg, device=dev)
+        t0 = time.perf_counter()
+        res = solve_batch_banded(grids, geom, cfg, mesh=band)
+        wall = time.perf_counter() - t0
+        for f in ref._fields:
+            if not torch.equal(getattr(res, f), getattr(ref, f)):
+                raise AssertionError(f"(g) banded {name}: {f} differs from solve_batch")
+        if not bool(res.solved.all()):
+            raise AssertionError(f"(g) banded {name}: unsolved")
+        out[name] = {"wall_s": wall, "nodes": int(res.nodes.sum()), "steps": int(res.steps),
+                     "sweeps": int(res.sweeps)}
+    log(f"[20] (g) banded on {band.size} shards: {json.dumps(out)}")
+    return out
+
+
+def _mesh_cli(dev, on_card) -> dict:
+    """(h): ``cli.main([... "--sharded"])`` in process answers one
+    ``POST /solve`` through ``solve_batch_sharded`` over ``default_mesh()``."""
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch import cli
+    from distributed_sudoku_solver_tpu_torch.parallel import sharded
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
+
+    sizes_seen: list = []
+
+    def make(orig):
+        def counting(states0, problem, config, mesh):
+            sizes_seen.append(mesh.size)
+            return orig(states0, problem, config, mesh)
+        return counting
+
+    http_port, p2p_port = _free_ports(2)
+    stop = threading.Event()
+    errors: list = []
+    argv = ["-p", str(http_port), "-s", str(p2p_port), "--host", "127.0.0.1",
+            "--advertise-host", "127.0.0.1", "--sharded", "--no-frontdoor"]
+
+    def run():
+        try:
+            cli.main(argv, device=None if on_card else dev, stop=stop)
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    undo = _wrap(sharded, "_solve_csp_sharded", make)
+    t = threading.Thread(target=run, name="cli-sharded", daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                _http(http_port, "/network", timeout=2)
+                break
+            except OSError:
+                if time.monotonic() > deadline or errors:
+                    raise AssertionError(f"(h) the --sharded node never came up: {errors}")
+                time.sleep(0.1)
+        t0 = time.perf_counter()
+        status, _, body = _http(http_port, "/solve", {"sudoku": np.asarray(HARD_9[0]).tolist()})
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        t.join(60)
+        undo()
+    if t.is_alive() or errors:
+        raise AssertionError(f"(h) the --sharded node did not stop cleanly: {errors}")
+    if status != 201 or not np.array_equal(np.asarray(body["solution"]), hard9_solutions()[0]):
+        raise AssertionError(f"(h) POST /solve answered {status}: {body}")
+    if set(sizes_seen) != {1}:
+        raise AssertionError(f"(h) solve_batch_sharded ran on meshes {sizes_seen}")
+    out = {"status": status, "wall_s": wall, "mesh_sizes": sorted(set(sizes_seen))}
+    log(f"[20] (h) --sharded node: {json.dumps(out)}")
+    return out
+
+
+def phase_mesh(corpus, device, sizes, dev) -> dict:
+    """Phase 20: the mesh, four virtual shards on the one card (``parallel.
+    virtual_devices``).  Returns the mesh paths' launches of K1, K2, K3."""
+    from distributed_sudoku_solver_tpu_torch.parallel import make_mesh, virtual_devices
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    with virtual_devices(sizes["mesh_shards"]):
+        mesh = make_mesh(device=dev)
+        if mesh.size != sizes["mesh_shards"] or len(set(mesh.devices)) != 1:
+            raise AssertionError(f"(20) the mesh is {mesh.devices}")
+        a = _mesh_composite(mesh, corpus, sizes, dev, on_card)
+        b = _mesh_k2(mesh, corpus, sizes, dev, on_card)
+        c = _mesh_k2_plain(mesh, corpus, sizes, dev, on_card)
+        d = _mesh_k3(mesh, dev, on_card)
+        e = _mesh_bulk(mesh, corpus, dev, on_card)
+        g = _mesh_banded(mesh, dev)
+    f = _mesh_resident(corpus, sizes, dev, on_card)
+    h = _mesh_cli(dev, on_card)
+    wall = time.perf_counter() - t0
+    log(f"[20] {device['smi']}; phase wall {wall:.1f} s")
+    log(json.dumps({"mesh": {"composite": a, "k2": b, "k2_plain": c, "k3": d, "bulk": e,
+                             "resident": f, "banded": g, "cli": h, "phase_wall_s": wall,
+                             "card": device["smi"]}}, default=str))
+    return {"K1": a["K1"] + e["K1"], "K2": b["K2"] + e["K2"], "K3": d["K3"]}
+
+
 def kernel_row(key: str, suffix: str = "", **fields) -> dict:
     name, source, replaces = KERNELS[key]
     return dict(name=name + suffix, route="cuda",
@@ -2689,6 +3200,8 @@ def main(argv=None) -> int:
                     help="phases 1-3 and the front-door phase (18) only (no result line)")
     ap.add_argument("--cluster", action="store_true",
                     help="phases 1-3 and the cluster phase (19) only (no result line)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="phases 1-3 and the mesh phase (20) only (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2726,6 +3239,9 @@ def main(argv=None) -> int:
     if args.cluster:
         phase_cluster(corpus, device, SIZES, dev)
         return 0
+    if args.mesh:
+        phase_mesh(corpus, device, SIZES, dev)
+        return 0
     k1 = phase_k1(corpus, SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
     phase_breakdown(corpus, SIZES, dev)
@@ -2749,13 +3265,14 @@ def main(argv=None) -> int:
     serving = phase_serving(corpus, minrem_nodes, device, SIZES, dev)
     frontdoor = phase_frontdoor(corpus, device, SIZES, dev)
     cluster = phase_cluster(corpus, device, SIZES, dev)
-    log(f"[20] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
+    mesh = phase_mesh(corpus, device, SIZES, dev)
+    log(f"[21] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
         f"{build_s:.1f} s")
     kernels = [
-        kernel_row("K1", launches=comp_launches["K1"] + serving["K1"], **k1),
+        kernel_row("K1", launches=comp_launches["K1"] + serving["K1"] + mesh["K1"], **k1),
         kernel_row("K2", launches=main_launches["K2"] + serving["K2"] + frontdoor["K2"]
-                   + cluster["K2"], **k2),
-        kernel_row("K3", launches=sum(cover_launches.values()), max_abs_err=k3_err,
+                   + cluster["K2"] + mesh["K2"], **k2),
+        kernel_row("K3", launches=sum(cover_launches.values()) + mesh["K3"], max_abs_err=k3_err,
                    **k3_rows["pentomino6x10"]),
     ]
     kernels += [kernel_row("K2", f" {rule}", launches=head_launches[rule], **k2_heads[rule])

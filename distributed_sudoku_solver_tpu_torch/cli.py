@@ -18,9 +18,10 @@ What does not carry over from the JAX CLI:
 
 * its persistent XLA compilation cache: the port's kernels are built once
   per source hash into ``_build/`` by ``ops/cuda_build.py``;
-* ``--sharded`` (lanes over every visible device) waits for the port's
-  multi-device slice (ROADMAP A12) and is refused; ``--mesh-devices``
-  keeps the port's ``ResidentConfig`` behaviour;
+* ``--sharded`` solves every batch with ``parallel.solve_batch_sharded``
+  over ``parallel.default_mesh()`` (every visible card), with no resident
+  or megastep flight, as in the JAX CLI; ``--mesh-devices N`` shards the
+  resident flight over N cards (``serving/mesh_scheduler.py``);
 * the compile watch and cost plane wait for the port's observability slice
   (ROADMAP A14): none is installed and ``/metrics`` has no ``compile`` or
   ``cost`` section.  ``--no-compile-watch`` is accepted; a non-default
@@ -120,11 +121,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh-devices",
         type=int,
         default=0,
-        help="shard the resident flight's lane axis over N devices: the "
-        "port has no mesh-resident flight yet (ROADMAP A12), so N > 1 "
-        "serves single-device (counted as mesh_unfit) when one device is "
-        "visible and fails with several.  0/1 = single-device resident "
-        "flight",
+        help="shard the resident flight's lane axis over N devices "
+        "(serving/mesh_scheduler.py): slot pool and throughput scale "
+        "with N; fewer visible devices serve single-device, counted as "
+        "mesh_unfit.  0/1 = single-device resident flight",
     )
     ap.add_argument(
         "--latency-mode",
@@ -231,8 +231,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--sharded",
         action="store_true",
-        help="shard lanes over all visible devices: not in the port yet "
-        "(ROADMAP A12), refused",
+        help="shard lanes over all visible devices",
     )
     ap.add_argument("--heartbeat-s", type=float, default=1.0)
     ap.add_argument(
@@ -413,11 +412,8 @@ _A14_FLAGS = (
 
 
 def check_port_flags(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse, through ``ap.error``, what the port does not serve yet:
-    ``--sharded`` (ROADMAP A12) and a non-default compile-watch or
-    cost-plane value (ROADMAP A14)."""
-    if args.sharded:
-        ap.error("--sharded needs the port's multi-device slice (ROADMAP A12)")
+    """Refuse, through ``ap.error``, what the port does not serve yet: a
+    non-default compile-watch or cost-plane value (ROADMAP A14)."""
     for dest, flag, default in _A14_FLAGS:
         if getattr(args, dest) != default:
             ap.error(f"{flag} needs the port's compile watch and cost plane (ROADMAP A14)")
@@ -432,9 +428,17 @@ def make_engine(args, device=None) -> SolverEngine:
         rules=args.rules,
         branch=args.branch,
     )
+    solve_fn = None
+    if args.sharded:
+        from distributed_sudoku_solver_tpu_torch.parallel import default_mesh, solve_batch_sharded
+
+        mesh = default_mesh(device)
+        solve_fn = lambda grids, geom, c: solve_batch_sharded(grids, geom, c, mesh=mesh)  # noqa: E731
     resident = None
-    if not args.no_resident:
-        # Continuous batching is on by default for serving nodes.
+    if not args.no_resident and solve_fn is None:
+        # Continuous batching is on by default for serving nodes (the
+        # sharded solve_fn keeps the one-call path, which has no flight
+        # loop to host a resident frontier).
         from distributed_sudoku_solver_tpu_torch.serving.scheduler import ResidentConfig
 
         resident = ResidentConfig(
@@ -474,14 +478,17 @@ def make_engine(args, device=None) -> SolverEngine:
             cache_entries=args.cache_entries,
             easy_score=easy_score,
         )
-    # The megastep config exists even when latency_mode is off: the
-    # per-request /solve?latency=1 opt-in still routes here.
-    from distributed_sudoku_solver_tpu_torch.serving.megastep import MegastepConfig
+    megastep = None
+    if solve_fn is None:
+        # The megastep config exists even when latency_mode is off: the
+        # per-request /solve?latency=1 opt-in still routes here.  The
+        # sharded solve_fn has no flight loop, so it excludes the megastep.
+        from distributed_sudoku_solver_tpu_torch.serving.megastep import MegastepConfig
 
-    megastep = MegastepConfig(
-        gang_lanes=args.resident_gang,
-        max_chunks=args.megastep_chunks,
-    )
+        megastep = MegastepConfig(
+            gang_lanes=args.resident_gang,
+            max_chunks=args.megastep_chunks,
+        )
     journal = None
     if args.journal_dir:
         # The WAL boots BEFORE the engine so the very first accepted job
@@ -493,6 +500,7 @@ def make_engine(args, device=None) -> SolverEngine:
     return SolverEngine(
         config=cfg,
         max_batch=args.max_batch,
+        solve_fn=solve_fn,
         handicap_s=args.handicap / 1000.0,
         resident=resident,
         recovery=RecoveryPolicy(

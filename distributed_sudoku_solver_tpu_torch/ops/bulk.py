@@ -1,7 +1,9 @@
-"""Bulk solver: one solve per chunk for very large batches, on one device.
+"""Bulk solver: one solve per chunk for very large batches.
 
-Port of the JAX package's ``ops/bulk.py``, single device only (``mesh=``
-raises).  Each chunk is one ``solve_batch_wire`` call: the frontier's first
+Port of the JAX package's ``ops/bulk.py``.  Each chunk is one
+``solve_batch_wire`` call (with ``mesh=``, one
+``parallel.sharded.solve_batch_sharded_wire`` call, lanes sharded over
+the mesh's shards): the frontier's first
 round is the propagation pass, and boards that close under propagation
 free their lanes for the hard ones.  Unresolved stragglers (overflowed or
 out of steps) escalate through rungs with OR-parallel thief gangs and deep
@@ -117,10 +119,16 @@ def solve_bulk(
 
     ``faults.fire("bulk.dispatch")`` (``serving/faults.py``) runs before
     each first-pass chunk's pack and before each rung dispatch: an
-    installed fault injector can fail either, as in the JAX package."""
-    if mesh is not None:
-        raise NotImplementedError("solve_bulk: the mesh path is not ported yet")
-    dev = resolve_device(device)
+    installed fault injector can fail either, as in the JAX package.
+
+    With ``mesh`` (``parallel.mesh.Mesh``), the chunks and the rungs run
+    the sharded frontier (``parallel/sharded.py``; a fused first pass runs
+    K2 on every shard), each chunk's lanes padded evenly over the shards,
+    in the packed wire format the sharded driver speaks; rungs take one
+    sharded solve each, composite, as in the JAX package.  ``device`` is
+    then the mesh's first shard's."""
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
+    n_dev = 1 if mesh is None else mesh.size
     on_cuda = dev.type == "cuda"
     grids = np.ascontiguousarray(np.asarray(grids, dtype=np.int32))
     b, n, _ = grids.shape
@@ -132,7 +140,16 @@ def solve_bulk(
 
     pad_board = solved_board(geom)
     prop = config.propagator or ("pallas" if on_cuda else "xla")
-    fmt = wire.best_format(geom)
+    fmt = wire.best_format(geom) if mesh is None else "packed"
+
+    def run_chunk(packed: torch.Tensor, scfg: SolverConfig) -> torch.Tensor:
+        if mesh is not None:
+            from distributed_sudoku_solver_tpu_torch.parallel.sharded import (
+                solve_batch_sharded_wire,
+            )
+
+            return solve_batch_sharded_wire(packed, geom, scfg, mesh)
+        return solve_batch_wire(packed, geom, scfg, fmt=fmt, device=dev)
 
     def pad_to(batch: np.ndarray, size: int) -> np.ndarray:
         # Pad with a complete board: its lane resolves on round one and
@@ -143,6 +160,7 @@ def solve_bulk(
         return np.concatenate([batch, pad])
 
     chunk = min(config.chunk, max(64, 1 << (max(b, 1) - 1).bit_length()))
+    chunk = max(n_dev, -(-chunk // n_dev) * n_dev)
     step_impl = config.step_impl or ("fused" if on_cuda else "xla")
     first_cfg = SolverConfig(
         lanes=chunk,
@@ -187,7 +205,7 @@ def solve_bulk(
             t0 = time.perf_counter()
             packed = torch.from_numpy(wire.pack_grids_for(batch, geom, fmt)).to(dev)
             t1 = time.perf_counter()
-            res = solve_batch_wire(packed, geom, first_cfg, fmt=fmt, device=dev)
+            res = run_chunk(packed, first_cfg)
             stage["pack_s"] += t1 - t0
             stage["solve_s"] += time.perf_counter() - t1
             pending.append(pool.submit(drain, lo, res))
@@ -216,6 +234,13 @@ def solve_bulk(
             start_frontier,
         )
 
+        if mesh is not None:
+            # The sharded driver loops to the end in one call; multi-device
+            # rungs keep that one-dispatch path, as in the JAX package.
+            faults.fire("bulk.dispatch")
+            res = run_chunk(torch.from_numpy(wire.pack_grids_host(batch, geom)).to(dev), scfg)
+            dispatches[0] += 1
+            return wire.unpack_result_host(res.cpu().numpy(), geom)
         if scfg.step_impl == "fused":
             from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
                 advance_frontier_fused_status as advance,
@@ -251,12 +276,12 @@ def solve_bulk(
             lanes_per_job //= 2
         while jobs_per_chunk * lanes_per_job * slots * cell_bytes > budget and jobs_per_chunk > 64:
             jobs_per_chunk //= 2
-        rung_lanes = jobs_per_chunk * lanes_per_job
+        rung_lanes = -(-(jobs_per_chunk * lanes_per_job) // n_dev) * n_dev
         rung_impl = "xla"
         want_fused = config.rung_step_impl == "fused" or (
             config.rung_step_impl is None and on_cuda and n >= 16
         )
-        if want_fused:
+        if want_fused and mesh is None:
             rung_impl = "fused"
             rung_lanes = -(-rung_lanes // 128) * 128
         scfg = SolverConfig(

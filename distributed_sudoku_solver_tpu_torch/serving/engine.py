@@ -43,9 +43,14 @@ With ``frontdoor=FrontDoorConfig()`` eligible submits cross the front door
 the propagation probe, the native race (``serving/portfolio.race_native``),
 and only the hard tail reaches a device flight.
 
-Left out, each for a later item of the roadmap: the compile watch and its
-cost plane (A14: ``/metrics`` has no ``compile`` or ``cost`` section, as a
-JAX engine without a watch installed) and the mesh-resident flight (A12).
+With ``ResidentConfig(mesh_devices=N > 1)`` the resident flight is the
+mesh flight (``serving/mesh_scheduler.py``) over the first N devices that
+``parallel.mesh.visible_devices`` gives; with fewer, the engine counts
+``mesh_unfit`` and serves on one device.
+
+Left out, for a later item of the roadmap: the compile watch and its cost
+plane (A14: ``/metrics`` has no ``compile`` or ``cost`` section, as a JAX
+engine without a watch installed).
 """
 
 from __future__ import annotations
@@ -730,21 +735,26 @@ class SolverEngine:
             from distributed_sudoku_solver_tpu_torch.serving.scheduler import ResidentFlight
 
             try:
+                rf = None
                 if self.resident_config.mesh_devices > 1:
-                    # The mesh-resident flight is ROADMAP A12.  With one
-                    # device visible this is JAX's unfit-mesh fallback;
-                    # with several, a silent single-device flight would
-                    # hide the missing port.
-                    if self.device.type == "cuda" and torch.cuda.device_count() > 1:
-                        raise NotImplementedError(
-                            "mesh-resident flights are not ported yet (ROADMAP A12)"
-                        )
-                    self.mesh_unfit += 1
-                    _LOG.warning(
-                        "[engine] mesh-resident flight unfit for %s (single-device "
-                        "fallback): one device visible", geom,
+                    # Shard the flight over a mesh (serving/mesh_scheduler.py).
+                    # Too few visible devices degrade to the single-device
+                    # flight, never to an error: the mesh is capacity, not
+                    # correctness.  Only that ValueError is caught here.
+                    from distributed_sudoku_solver_tpu_torch.serving.mesh_scheduler import (
+                        MeshResidentFlight,
                     )
-                rf = ResidentFlight(self, geom, self.resident_config)
+
+                    try:
+                        rf = MeshResidentFlight(self, geom, self.resident_config)
+                    except ValueError as e:
+                        self.mesh_unfit += 1
+                        _LOG.warning(
+                            "[engine] mesh-resident flight unfit for %s "
+                            "(single-device fallback): %s", geom, e,
+                        )
+                if rf is None:
+                    rf = ResidentFlight(self, geom, self.resident_config)
             except ValueError as e:
                 self.resident_unfit += 1
                 self._resident[geom] = None

@@ -172,7 +172,7 @@ class ResidentFlight:
         self.engine = engine
         self.geom = geom
         self.rcfg = rcfg
-        self.config = resident_solver_config(engine.config, geom, rcfg)
+        self.config = self._solver_config(engine.config, geom, rcfg)
         self.gang = self.config.steal_gang
         self.n_slots = self.config.lanes // self.gang
         self.state: Optional[Frontier] = None  # created lazily on the loop
@@ -204,6 +204,45 @@ class ResidentFlight:
         self.chunk_wall = StatWindow()  # per-chunk status-sync wall
         self.dispatch_wall = StatWindow()  # host time enqueueing a round's work
         self.event_wall = StatWindow()  # detach-round verdict fetches
+
+    # -- strategy hooks (the mesh flight swaps the device programs) ---------
+    def _solver_config(self, base: SolverConfig, geom: Geometry, rcfg: ResidentConfig
+                       ) -> SolverConfig:
+        return resident_solver_config(base, geom, rcfg)
+
+    def _unpack(self, raw) -> dict:
+        return unpack_status(raw, self.n_slots)
+
+    def _init_state(self):
+        return _init_resident(self.geom, self.config, self.n_slots, self.engine.device)
+
+    def _attach_state(self, grids: np.ndarray, slot_ids: np.ndarray):
+        return _attach(self.state, grids, slot_ids, self.geom, self.gang)
+
+    def _detach_state(self, slot_mask: np.ndarray):
+        return _detach(self.state, slot_mask)
+
+    def _verdict_state(self) -> Frontier:
+        """The frontier whose per-job rows hold the verdicts."""
+        return self.state
+
+    def _rebase_state(self):
+        return self.state._replace(
+            steps=torch.zeros_like(self.state.steps),
+            lane_rounds=torch.zeros_like(self.state.lane_rounds),
+        )
+
+    def _advance_state(self):
+        """Dispatch one bounded-step chunk: ``(new state, status word)``."""
+        if self.config.step_impl == "fused":
+            from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
+                advance_frontier_fused_status as advance,
+            )
+        else:
+            from distributed_sudoku_solver_tpu_torch.utils.checkpoint import (
+                advance_frontier_status as advance,
+            )
+        return advance(self.state, self.rcfg.chunk_steps, self.geom, self.config)
 
     # -- any-thread surface --------------------------------------------------
     def admit(self, job) -> str:
@@ -327,7 +366,7 @@ class ResidentFlight:
         t0 = self.engine._clock()
         raw = engine_mod.host_fetch(self._pending_status, floor_s=self.engine.handicap_s)
         self._pending_status = None
-        self._status = unpack_status(raw, self.n_slots)
+        self._status = self._unpack(raw)
         sync_s = self.engine._clock() - t0
         self.chunk_wall.record(sync_s)
         self.engine.hist["chunk_wall_ms"].record(sync_s)
@@ -408,7 +447,7 @@ class ResidentFlight:
             tr_ev = rec.now() if rec is not None else 0.0
             t_ev = self.engine._clock()
             nodes, sol_counts, overflowed, solutions = engine_mod.host_fetch(
-                _verdict(self.state), floor_s=self.engine.handicap_s, tag="event"
+                _verdict(self._verdict_state()), floor_s=self.engine.handicap_s, tag="event"
             )
             self._event_wall = self.engine._clock() - t_ev
             self.event_wall.record(self._event_wall)
@@ -439,7 +478,7 @@ class ResidentFlight:
         if faults.active() is not None:
             faults.fire("resident.detach",
                         uuids=tuple(j.uuid for j in self.slots if j is not None))
-        self.state = _detach(self.state, detach_mask)
+        self.state = self._detach_state(detach_mask)
 
     def _attach_pending(self) -> None:
         """FIFO-drain the admission queue into free slots, one attach batch
@@ -475,8 +514,7 @@ class ResidentFlight:
         if faults.active() is not None:
             faults.fire("resident.attach", uuids=tuple(job.uuid for _, job in batch))
         if self.state is None:
-            self.state = _init_resident(self.geom, self.config, self.n_slots,
-                                        self.engine.device)
+            self.state = self._init_state()
         n = self.geom.n
         k = self.rcfg.attach_batch
         grids = np.zeros((k, n, n), np.int32)
@@ -487,7 +525,7 @@ class ResidentFlight:
             wait_s = now - job.submitted_at
             self.admission_wait.record(wait_s)
             self.engine.hist["admission_wait_ms"].record(wait_s)
-        self.state = _attach(self.state, grids, slot_ids, self.geom, self.gang)
+        self.state = self._attach_state(grids, slot_ids)
 
     def _advance(self) -> None:
         """Dispatch one bounded-step chunk; its status is consumed at the
@@ -496,26 +534,13 @@ class ResidentFlight:
             return
         if self._status is not None and self._status["steps"] > _REBASE_STEPS:
             # Rebase the two monotone counters; limits are relative.
-            self.state = self.state._replace(
-                steps=torch.zeros_like(self.state.steps),
-                lane_rounds=torch.zeros_like(self.state.lane_rounds),
-            )
-        if self.config.step_impl == "fused":
-            from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
-                advance_frontier_fused_status as advance,
-            )
-        else:
-            from distributed_sudoku_solver_tpu_torch.utils.checkpoint import (
-                advance_frontier_status as advance,
-            )
+            self.state = self._rebase_state()
         if faults.active() is not None:
             faults.fire("resident.advance",
                         uuids=tuple(j.uuid for j in self.slots if j is not None))
         rec = trace.active()
         tr0 = rec.now() if rec is not None else 0.0
-        self.state, self._pending_status = advance(
-            self.state, self.rcfg.chunk_steps, self.geom, self.config
-        )
+        self.state, self._pending_status = self._advance_state()
         if rec is not None:
             rec.record(None, "resident.chunk.dispatch", "resident.advance", tr0,
                        node=self.engine.trace_node,

@@ -2,8 +2,8 @@
 package's.
 
 The parser carries every flag of the JAX parser with the same default;
-``--sharded`` and the compile-watch values are refused, naming the ROADMAP
-items they wait for.  ``make_engine`` and ``main`` run on the card unless a
+the compile-watch values are refused, naming the ROADMAP item they wait
+for; ``--sharded`` serves through ``parallel.solve_batch_sharded``.  ``make_engine`` and ``main`` run on the card unless a
 test passes ``device="cpu"``: without a card ``make_engine(args)`` raises
 instead of running on the CPU.  ``solve-file`` writes the JAX CLI's lines,
 and ``main`` boots a cluster node that serves HTTP and drains on stop.
@@ -78,7 +78,6 @@ def test_every_jax_flag_exists_with_an_equal_default(which):
 @pytest.mark.parametrize(
     "argv, item",
     [
-        (["--sharded"], "A12"),
         (["--compile-warmup", "10"], "A14"),
         (["--compile-rearm", "1"], "A14"),
         (["--peak-gflops", "1000"], "A14"),
@@ -138,6 +137,72 @@ def test_make_engine_needs_the_card_and_never_runs_on_the_cpu():
         cli.make_engine(args)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["-p", "0", "-s", "0", "--host", "127.0.0.1"])
+
+
+def test_make_engine_sharded_matches_the_jax_cli():
+    """``--sharded``: the solve_fn is ``solve_batch_sharded`` over
+    ``default_mesh()`` and, as in the JAX CLI, there is no resident or
+    megastep flight to host."""
+    from distributed_sudoku_solver_tpu_torch.parallel.mesh import virtual_devices
+
+    jargs = jcli.build_parser().parse_args(["--sharded"])
+    assert jargs.sharded
+    with virtual_devices(4):
+        eng = cli.make_engine(cli.build_parser().parse_args(["--sharded"]), device="cpu")
+    try:
+        assert eng.resident_config is None and eng.megastep_config is None
+        assert not eng._use_flights
+    finally:
+        eng.stop(timeout=1)
+
+
+def test_main_sharded_answers_solve_through_the_mesh(monkeypatch):
+    """``cli.main([... "--sharded"])`` answers ``POST /solve`` through
+    ``solve_batch_sharded`` over a four-shard mesh (the front door off, so
+    the board reaches the device route)."""
+    from distributed_sudoku_solver_tpu_torch.parallel import sharded
+    from distributed_sudoku_solver_tpu_torch.parallel.mesh import virtual_devices
+
+    meshes = []
+    orig = sharded._solve_csp_sharded
+
+    def counting(states0, problem, config, mesh):
+        meshes.append(mesh.size)
+        return orig(states0, problem, config, mesh)
+
+    monkeypatch.setattr(sharded, "_solve_csp_sharded", counting)
+    http_port, p2p_port = _free_port(), _free_port()
+    stop = threading.Event()
+    errors = []
+    argv = ["-p", str(http_port), "-s", str(p2p_port), "--host", "127.0.0.1",
+            "--advertise-host", "127.0.0.1", "--lanes", "16", "--sharded", "--no-frontdoor"]
+
+    def run():
+        try:
+            cli.main(argv, device="cpu", stop=stop)
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    with virtual_devices(4):
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        try:
+            up = threading.Event()
+            for _ in range(600):
+                try:
+                    _http(http_port, "/network", timeout=1)
+                    up.set()
+                    break
+                except OSError:
+                    up.wait(0.1)
+            assert up.is_set(), errors
+            code, body = _http(http_port, "/solve", {"sudoku": np.asarray(HARD_9[0]).tolist()})
+            assert code == 201 and is_valid_solution(np.asarray(body["solution"]))
+        finally:
+            stop.set()
+            t.join(60)
+    assert not t.is_alive() and not errors, errors
+    assert meshes and set(meshes) == {4}
 
 
 def test_solve_file_main_equals_jax_solve_file_line_for_line(tmp_path, capsys):

@@ -151,6 +151,62 @@ def test_later_entry_points_raise_without_cuda_unless_cpu_is_asked(tmp_path, mon
     assert race_cover(nqueens_cover(6), timeout=60.0, device="cpu").count == 4
 
 
+MESH_FILES = sorted((PKG / "parallel").glob("*.py")) + [PKG / "serving" / "mesh_scheduler.py"]
+
+
+def test_mesh_modules_import_no_jax():
+    """``parallel/`` and ``serving/mesh_scheduler.py`` are port files the
+    AST scan above covers, and importing them leaves JAX out."""
+    assert len(MESH_FILES) == 8 and all(p in PORT_FILES for p in MESH_FILES)
+    code = ("import sys\n"
+            "import distributed_sudoku_solver_tpu_torch.parallel as p\n"
+            "import distributed_sudoku_solver_tpu_torch.parallel.mesh_resident\n"
+            "import distributed_sudoku_solver_tpu_torch.serving.mesh_scheduler as m\n"
+            "assert p.solve_batch_sharded and m.MeshResidentFlight\n"
+            "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib'))\n"
+            "       or k == 'distributed_sudoku_solver_tpu'\n"
+            "       or k.startswith('distributed_sudoku_solver_tpu.')]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_mesh_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    """The mesh entry points resolve ``device=None`` (and a default mesh)
+    to CUDA; ``device="cpu"`` runs them on CPU shards."""
+    from distributed_sudoku_solver_tpu_torch import parallel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grids = np.stack([HARD_9[0]]).astype(np.int32)
+    queens = nqueens_cover(5)
+    roots = queens.initial_state()[None]
+    fused = SolverConfig(step_impl="fused", min_lanes=8)
+    calls = [
+        lambda d: parallel.default_mesh(d),
+        lambda d: parallel.make_mesh(device=d),
+        lambda d: parallel.make_band_mesh(device=d),
+        lambda d: parallel.solve_batch_sharded(grids, SUDOKU_9, device=d),
+        lambda d: parallel.solve_csp_sharded(roots, queens, device=d),
+        lambda d: parallel.solve_batch_fused_sharded(grids, SUDOKU_9, fused, device=d),
+        lambda d: parallel.solve_csp_fused_sharded(roots, queens, fused, device=d),
+        lambda d: parallel.solve_batch_banded(grids, SUDOKU_9, device=d),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call(None)
+    with parallel.virtual_devices(2):
+        for call in calls:
+            out = call("cpu")
+            if isinstance(out, parallel.Mesh):
+                assert out.devices == (torch.device("cpu"),) * 2
+            else:
+                assert out.solved.device.type == "cpu" and bool(out.solved[0])
+        res = solve_bulk(grids, SUDOKU_9, mesh=parallel.default_mesh("cpu"))
+        assert res.solved.all()
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     meta = torch.empty((2, 9, 9), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):

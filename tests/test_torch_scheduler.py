@@ -342,10 +342,14 @@ def test_ineligible_jobs_fall_back_to_static_flights(engine):
     assert engine.metrics()["resident"]["9x9"].get("admitted", 0) == before
 
 
-def test_mesh_devices_fall_back_or_raise(monkeypatch):
-    """``mesh_devices > 1`` (the mesh-resident flight, ROADMAP A12): with
-    one device the unfit-mesh fallback of the JAX engine (counted, served
-    single-device); with several CUDA devices visible, NotImplementedError."""
+def test_mesh_devices_fall_back_or_raise():
+    """``mesh_devices > 1``: with one device visible, the unfit-mesh
+    fallback of the JAX engine (counted, served single-device); with
+    enough devices visible (two virtual shards on the CPU), the mesh
+    flight (``serving/mesh_scheduler.py``) and no ``mesh_unfit``."""
+    from distributed_sudoku_solver_tpu_torch.parallel.mesh import virtual_devices
+    from distributed_sudoku_solver_tpu_torch.serving.mesh_scheduler import MeshResidentFlight
+
     eng = cpu_engine(config=SMALL, max_batch=8,
                      resident=ResidentConfig(job_slots=2, gang_lanes=4, mesh_devices=2)).start()
     try:
@@ -353,13 +357,19 @@ def test_mesh_devices_fall_back_or_raise(monkeypatch):
         assert j.wait(60) and j.solved
         m = eng.metrics()
         assert m["mesh_unfit"] == 1 and m["resident"]["9x9"]["admitted"] == 1
+        assert not isinstance(eng._resident[SUDOKU_9], MeshResidentFlight)
     finally:
         eng.stop(timeout=2)
-    eng = SolverEngine(config=SMALL, device="cuda",
-                       resident=ResidentConfig(job_slots=2, gang_lanes=4, mesh_devices=2))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        eng.submit(EASY_9)
+    with virtual_devices(2):
+        eng = cpu_engine(config=SMALL, max_batch=8,
+                         resident=ResidentConfig(job_slots=2, gang_lanes=4, mesh_devices=2)).start()
+        try:
+            j = eng.submit(EASY_9)
+            assert j.wait(60) and j.solved
+            assert isinstance(eng._resident[SUDOKU_9], MeshResidentFlight)
+            assert "mesh_unfit" not in eng.metrics()
+        finally:
+            eng.stop(timeout=2)
 
 
 def _post(port, board):
