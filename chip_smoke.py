@@ -11,14 +11,19 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py --frontdoor    # phases 1-3 and the front-door phase (18) only
     python3 chip_smoke.py --cluster      # phases 1-3 and the cluster phase (19) only
     python3 chip_smoke.py --mesh         # phases 1-3 and the mesh phase (20) only
+    python3 chip_smoke.py --compile      # phases 1-3 and the compile-watch phase (21) only
 
-Phases, each of which must pass (nothing is caught and skipped):
+Phases, each of which must pass (nothing is caught and skipped).  The
+full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
+23: phase 21 needs a process in which no kernel library is loaded yet.
 
 1. print the card's name, the device count and ``nvidia-smi``'s name and
    power limit;
 2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
    (one ``nvcc`` per library, started together: K1, K2, K3, the two probe
-   kernels P16 and PCV, and K2's and K3's counter builds) and print, per
+   kernels P16 and PCV, and K2's and K3's counter builds; in the full run
+   and under ``--compile`` phase 21 has built them: its nodes K1's and
+   K2's libraries at first use, the smoke the other five) and print, per
    kernel instantiation (K1 and K2 are templates on the box shape, K3 on
    the instance's row and covered words, P16 on the mask bits, PCV on the
    row words), ptxas's registers, spills and stack frame and the warps an
@@ -204,13 +209,46 @@ Phases, each of which must pass (nothing is caught and skipped):
    ``solve_batch``.  (h) ``cli.main([..., "--sharded"])`` in process
    answers ``POST /solve`` through ``solve_batch_sharded`` over
    ``default_mesh()`` (one card);
-21. the seconds the script took, the build's among them, then one JSON
+21. the compile watch, the cost plane and the analysis runner.  (a) Node F
+   booted through ``cli.main`` (``--no-frontdoor --trace --compile-warmup
+   600 --compile-rearm 5 --peak-gflops`` the int32 peak above, in G ops/s;
+   the CLI's engine with ``step_impl="fused"``, which the CLI has no flag
+   for) installs its compile watch and builds nothing at boot.  Its first
+   request, alone on the host, builds and loads K2's library through
+   ``cuda_build.load`` under the watch; the wall from the node's start to
+   that answer is the time to a serving node.  An in-process node C
+   (composite, K1) does the same for K1's library with its first static
+   request; ``/metrics`` ``compile`` must then show exactly those two
+   libraries, each built once and loaded once, with the nvcc seconds.
+   The smoke then builds the five libraries no node has used (one nvcc
+   each, all at once, in a process of its own, so no watch hears of it)
+   beside phase 17's routes: 512 corpus boards and HARD_9 resident,
+   HARD_9 ``?latency=1``, a ``count_all``, ``/solve_batch`` of 1,024, and
+   on node C 128 static boards and 16 16x16 boards, after which the watch
+   must still show only the two libraries.  (b) The warmup is sealed;
+   a second pass (256 resident, 32 static) makes no recompile, and the
+   host syncs per resident chunk and per megastep flight (8 boards and
+   HARD_9, one request at a time) are equal with the watch on and off, in
+   turns on, off, off, on, after an uncompared warm-up turn.  (c) K3's
+   first load (a fused n-queens 12 enumeration, 14,200) is exactly one
+   recompile, one ``[compile cover]``
+   line and one flight-recorder dump; after 5 s of quiet the alarm
+   re-arms, and the cover probe's first load fires a second dump.  (d)
+   ``/metrics`` ``cost``, read while the fused advance has one shape: K2's
+   per-round int32 ops at 128 lanes equal ``ops.cost.advance_round_cost``,
+   an achieved rate, a device efficiency in (0, 1.05]; after the
+   ``count_all`` flight the gauge reads ``suppressed: mixed_shapes``;
+   ``/metrics?format=prometheus`` promck-clean and ``/trace?format=
+   perfetto`` traceck-clean.  (e) ``python -m
+   distributed_sudoku_solver_tpu_torch.analysis --strict-waivers`` exits 0
+   without importing torch, and ``--rule kernelck`` exits 0;
+22. the seconds the script took, the build's among them, then one JSON
    line ``{"kernels": [...]}`` (launches on the paths, times at the path's
    shape, the plain version's time, the bound; K2 once more for each
    head, P16 once per mask width; K1's and K2's launches include the
-   serving and mesh phases', K2's the front-door and cluster phases' too,
-   K3's the mesh phase's);
-22. the last line, ``{"ok": true, "device": {...}}``.
+   serving, mesh and compile-watch phases', K2's the front-door and
+   cluster phases' too, K3's the mesh and compile-watch phases');
+23. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
 integer bit algebra.  Exits nonzero without a result where CUDA is absent.
@@ -226,6 +264,9 @@ import tempfile
 import threading
 import time
 import warnings
+
+# The op counts that bound the kernels, the compile watch's cost plane's too.
+from distributed_sudoku_solver_tpu_torch.ops.cost import round_ops, sweep_ops
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -246,7 +287,8 @@ SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, com
              serving_static=256, serving_bulk=4096, frontdoor_unique=1024, frontdoor_unsat=8,
              cluster_unique=1024, cluster_crash=256, cluster_bulk=4096, mesh_shards=4,
              mesh_composite=4096, mesh_steal_easy=63, mesh_k2=32768, mesh_k2_plain=1024,
-             mesh_resident=512)
+             mesh_resident=512, compile_mass=512, compile_bulk=1024, compile_static=128,
+             compile_sync=8)
 
 HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
 
@@ -288,26 +330,6 @@ def hard9_solutions():
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def sweep_ops(geom, rules: str) -> int:
-    """Integer operations of one sweep of one board, counted on the plain
-    algorithm: unit reductions at 1 op (OR) or 3 ops (once/twice) per cell
-    per unit type, plus the per-cell combines of each stage."""
-    n2 = geom.n * geom.n
-    ops = (1 + 3 + 5) * n2 + (9 + 4) * n2  # elimination, hidden singles
-    if rules in ("extended", "subsets"):
-        ops += 2 * n2 * (3 + 2 * (geom.n_hboxes + geom.box_h)) + 2 * n2
-    if rules == "subsets":
-        ops += 21 * geom.n ** 3
-    return ops
-
-
-def round_ops(geom) -> int:
-    """Integer operations of one round outside the fixpoint: status
-    (3 unit types, 4 ops per cell each, + 2 per cell), branch key and
-    argmin (3 per cell), row copy for the push or pop (1 per cell)."""
-    return (12 + 2 + 3 + 1) * geom.n * geom.n
 
 
 def _cols_per_row(problem) -> float:
@@ -498,9 +520,13 @@ def phase_build() -> float:
     build_s = time.perf_counter() - t0
     if not native.available():
         raise AssertionError("the native oracle did not build (g++)")
-    seconds["native csp (g++)"] = native.build_seconds or 0.0
-    log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
-        f"total {build_s:.2f} s")
+    if seconds:
+        seconds["native csp (g++)"] = native.build_seconds or 0.0
+        log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+            f"total {build_s:.2f} s")
+    else:
+        log("[2] build: every library was built already (phase 21: the nodes' first "
+            "requests and the smoke's build beside them)")
     spills = []
     for name in cuda_build.SOURCES:
         block = 256 if name == "cover" else 128  # threads per block
@@ -3168,6 +3194,417 @@ def phase_mesh(corpus, device, sizes, dev) -> dict:
     return {"K1": a["K1"] + e["K1"], "K2": b["K2"] + e["K2"], "K3": d["K3"]}
 
 
+# -- phase 21: the compile watch, the cost plane and the analysis runner ------
+
+
+class _LogLines:
+    """Collects the messages a logger emits (the watch's ``[compile ...]``
+    lines)."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.lines: list = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+# The libraries phase 21's nodes build through cuda_build.load at first use.
+NODE_TARGETS = (("fused_step", ""), ("propagate", ""))
+# The smoke's build of every other library (one nvcc each, all at once).
+SMOKE_BUILD = (
+    "import json\n"
+    "from distributed_sudoku_solver_tpu_torch.ops import cuda_build as b\n"
+    "print(json.dumps(b.build(b.TARGETS + (('fused_step', 'clocks'), ('cover', 'clocks')))))\n")
+
+
+def _smoke_build_seconds(proc) -> dict:
+    """Waits for the smoke's build process; each library's nvcc seconds."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"(21) the smoke's build failed: rc {proc.returncode}\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _compile_section(port: int) -> dict:
+    status, _, body = _http(port, "/metrics")
+    if status != 200 or "compile" not in body:
+        raise AssertionError(f"(21) /metrics: {status}, compile section "
+                             f"{'compile' in body if isinstance(body, dict) else body}")
+    return body
+
+
+def _sync_turns(port, rf_of, mf_of, boards, hard, watch,
+                turns=("warm-up", "on", "off", "off", "on")):
+    """Host syncs per resident chunk and per megastep flight, the compile
+    watch installed or not, in turns; requests one at a time so that every
+    turn serves the same chunks.  The warm-up turn (watch on) is not
+    compared: its first chunk also detaches the previous pass's last job."""
+    from distributed_sudoku_solver_tpu_torch.models.geometry import geometry_for_size
+    from distributed_sudoku_solver_tpu_torch.obs import compilewatch
+
+    geom_of = lambda b: geometry_for_size(b.shape[0])  # noqa: E731
+    out: dict = {"resident_per_chunk": {"warm-up": [], "on": [], "off": []},
+                 "latency_per_flight": {"warm-up": [], "on": [], "off": []}}
+    try:
+        for turn in turns:
+            compilewatch.install(None if turn == "off" else watch)
+            rf, before = rf_of(), rf_of().chunks
+            (res, _), n = _syncs_during(lambda: _post_all(port, boards, threads=1))
+            _check_answers(boards, res, geom_of, f"(21) resident syncs, watch {turn}")
+            out["resident_per_chunk"][turn].append(n / max(1, rf.chunks - before))
+            mf, before = mf_of(), mf_of().flights
+            (res, _), n = _syncs_during(lambda: _post_all(port, hard, threads=1,
+                                                          path="/solve?latency=1"))
+            _check_answers(hard, res, geom_of, f"(21) latency syncs, watch {turn}")
+            out["latency_per_flight"][turn].append(n / max(1, mf.flights - before))
+    finally:
+        compilewatch.install(watch)
+    for route, row in out.items():
+        if set(row["on"]) != set(row["off"]) or len(set(row["on"])) != 1:
+            raise AssertionError(f"(21) {route}: host syncs with the watch on {row['on']} "
+                                 f"and off {row['off']} differ")
+    return out
+
+
+def phase_compile(corpus, device, sizes, dev) -> dict:
+    """Phase 21: a node booted through ``cli.main`` with its compile watch,
+    on a process where no kernel library is loaded yet: (a) warmup, the
+    nodes' first requests building and loading K2's and K1's libraries
+    under the watch (the time to a serving node), the smoke's build of the
+    other libraries in a process of its own, and phase 17's mix, (b)
+    a second pass after the seal with zero recompiles and the same host
+    syncs with the watch on and off, (c) two forced first loads after the
+    seal, each one recompile, one log line and one dump, the second after
+    the re-arm, (d) the cost plane, Prometheus and Perfetto exports, (e)
+    the analysis runner.  Returns the phase's K1, K2 and K3 launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_sudoku_solver_tpu_torch import cli
+    from distributed_sudoku_solver_tpu_torch.models.geometry import (
+        SUDOKU_9,
+        SUDOKU_16,
+        geometry_for_size,
+    )
+    from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
+    from distributed_sudoku_solver_tpu_torch.obs import compilewatch, critpath, promck, trace, traceck
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_build, cuda_cover, cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.cost import advance_round_cost
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+    from distributed_sudoku_solver_tpu_torch.ops.solve import solve_csp
+    from distributed_sudoku_solver_tpu_torch.probes import cover_kernel
+    from distributed_sudoku_solver_tpu_torch.serving.engine import SolverEngine
+    from distributed_sudoku_solver_tpu_torch.serving.http import ApiServer, StandaloneNode
+    from distributed_sudoku_solver_tpu_torch.utils.oracle import count_solutions
+    from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9, make_puzzle, to_line
+
+    if cuda_build._loaded or any(cuda_build.lib_path(*t).exists() for t in NODE_TARGETS):
+        raise AssertionError(f"(21) a library of the nodes is built or loaded already: "
+                             f"{sorted(cuda_build._loaded)}")
+    t_phase = time.perf_counter()
+    # The smoke's own reference (the native oracle, g++), before any watch.
+    hard9_solutions()
+    geom_of = lambda b: geometry_for_size(b.shape[0])  # noqa: E731
+    hard9 = [np.asarray(h, np.int32) for h in HARD_9]
+    peak = PEAK_INT32_OPS_PER_S / 1e9
+    rearm_s = 5.0
+    out: dict = {"card": device["smi"]}
+    # Node F's config: the CLI's engine with the fused step (K2).  The CLI
+    # has no flag for the step, as the JAX CLI has none.
+    engines: list = []
+    make_engine = cli.make_engine
+
+    def fused_engine(args, device=None):
+        eng = make_engine(args, device=device)
+        eng.config = dataclasses.replace(eng.config, step_impl="fused")
+        engines.append(eng)
+        return eng
+
+    http_port, p2p_port = _free_ports(2)
+    stop = threading.Event()
+    errors: list = []
+    dump_dir = tempfile.mkdtemp(prefix="dsst-compile-")
+    argv = ["-p", str(http_port), "-s", str(p2p_port), "--host", "127.0.0.1",
+            "--advertise-host", "127.0.0.1", "--no-frontdoor", "--trace", "--trace-dump",
+            dump_dir, "--compile-warmup", "600", "--compile-rearm", str(rearm_s),
+            "--peak-gflops", str(peak)]
+
+    on_card = dev.type == "cuda"
+
+    def run():
+        try:
+            cli.main(argv, device=None if on_card else dev, stop=stop)
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    def dumps():
+        return sorted(f for f in os.listdir(dump_dir) if "recompile" in f)
+
+    cli.make_engine = fused_engine
+    node = threading.Thread(target=run, name="cli-compile", daemon=True)
+    eng_c = api_c = smoke_build = None
+    for k in (cuda_step.fused_rounds_cuda, cuda_propagate.propagate_fixpoint_cuda,
+              cuda_cover.cover_fused_rounds_cuda):
+        k.launches = 0
+    t_boot = time.perf_counter()
+    node.start()
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                _http(http_port, "/network", timeout=2)
+                break
+            except OSError:
+                if time.monotonic() > deadline or errors:
+                    raise AssertionError(f"(21) the node never came up: {errors}")
+                time.sleep(0.1)
+        watch = compilewatch.active()
+        if not isinstance(watch, compilewatch.CompileWatch) or watch.peak_gflops != peak:
+            raise AssertionError(f"(21) cli.main installed no compile watch at "
+                                 f"--peak-gflops {peak}: {watch}")
+        eng = engines[0]
+        up_s = time.perf_counter() - t_boot
+        # (a) A node builds nothing at boot: its first request's first
+        # advance loads K2's library through cuda_build.load, which builds
+        # it, under the node's watch.  Node F's first request is alone on
+        # the host, so its wall is the time to a serving node.
+        base = len(HARD_9)
+        first = [corpus[base + sizes["compile_mass"] + sizes["compile_mass"] // 2]]
+        res, f_wall = _post_all(http_port, first, threads=1)
+        _check_answers(first, res, geom_of, "(21) node F's first request")
+        f_serving_s = time.perf_counter() - t_boot
+        # Node C (composite, K1), in process: its first static request
+        # builds and loads K1's library the same way.
+        eng_c = SolverEngine(config=SolverConfig(propagator="pallas"), max_batch=256,
+                             chunk_steps=64, resident=None, device=dev).start()
+        api_c = ApiServer(StandaloneNode(eng_c, address="127.0.0.1:c"), host="127.0.0.1",
+                          port=0, solve_timeout_s=600).start()
+        first_c = [corpus[base + 5000 + sizes["compile_static"]]]
+        res, c_wall = _post_all(api_c.port, first_c, threads=1, retry_429=False)
+        _check_answers(first_c, res, geom_of, "(21) node C's first request")
+        sec = _compile_section(http_port)["compile"]
+        nodes = {name: {k: rec.get(k) for k in ("builds", "loads", "wall_ms_total")}
+                 for name, rec in sec["programs"].items()}
+        if (set(nodes) != {"fused_step", "propagate"}
+                or any(r["builds"] != 1 or r["loads"] != 1 for r in nodes.values())):
+            raise AssertionError(f"(21) (a) the nodes' first requests did not build and load "
+                                 f"K2's and K1's libraries once each: {nodes}")
+        out["time_to_serving"] = {"node_up_s": up_s, "node_f_first_answer_s": f_serving_s,
+                                  "node_f_first_request_s": f_wall, "node_c_first_request_s": c_wall,
+                                  "libraries": nodes}
+        log(f"[21] (a) node F up with the compile watch (warmup 600 s, re-arm {rearm_s} s, peak "
+            f"{peak} G int32 ops/s) in {up_s:.2f} s, building nothing; its first request "
+            f"answered after {f_wall:.2f} s ({f_serving_s:.2f} s from the start), node C's "
+            f"after {c_wall:.2f} s; the nodes' builds and first loads: {json.dumps(nodes)}")
+        # The libraries no node has used yet, built by the smoke in a process
+        # of its own (so no watch hears of it) beside the rest of the phase:
+        # (c) needs cover and probe_cover on disk and not loaded, and phase 2
+        # reports ptxas's view of every build.
+        smoke_build = subprocess.Popen(
+            [sys.executable, "-c", SMOKE_BUILD], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        # Pass A, inside the warmup: phase 17's routes on node F (9x9, so
+        # the fused advance runs one shape) and node C (static, K1, and
+        # the 16x16 boards).
+        mass = [corpus[base + i] for i in range(sizes["compile_mass"])] + hard9
+        res, wall = _post_all(http_port, mass, threads=sizes["serving_clients"])
+        _check_answers(mass, res, geom_of, "(21) resident")
+        if any(r[0] != 201 for r in res):
+            raise AssertionError("(21) a resident request was not answered 201 after retries")
+        routes = [_route_line("resident", res, wall, "[21]")]
+        lres, lwall = _post_all(http_port, hard9, threads=1, path="/solve?latency=1")
+        _check_answers(hard9, lres, geom_of, "(21) latency")
+        for h, r in zip(hard9_solutions(), lres):
+            if not np.array_equal(np.asarray(r[2]["solution"]), h):
+                raise AssertionError("(21) a latency answer differs from the oracle's")
+        routes.append(_route_line("latency", lres, lwall, "[21]"))
+        # (d) The cost plane, read while the fused advance has one shape.
+        m = _compile_section(http_port)
+        cost = m["cost"]["programs"]["advance_fused_status"]
+        want = advance_round_cost(SUDOKU_9, cost["lanes"], "basic")
+        eff = m["cost"]["efficiency"]
+        if (cost["lanes"] != 128 or cost["flops"] != want["flops"] or cost["unit"] != "int32_ops"
+                or eff.get("achieved_gflops_per_s", 0) <= 0
+                or not 0 < eff.get("device_efficiency", 0) <= 1.05):
+            raise AssertionError(f"(21) cost plane: {cost} {eff}")
+        out["cost"] = {"advance_fused_status": cost, "efficiency": eff,
+                       "megastep": m["cost"]["programs"].get("advance_megastep_fused")}
+        log(f"[21] (d) cost: K2 advance {cost['flops']:.0f} int32 ops and "
+            f"{cost['bytes_accessed']:.0f} bytes a round at {cost['lanes']} lanes; achieved "
+            f"{eff['achieved_rounds_per_s']} rounds/s = {eff['achieved_gflops_per_s']} G int32 "
+            f"ops/s, device efficiency {eff['device_efficiency']} of the ceiling "
+            f"{eff['ceiling_rounds_per_s']} rounds/s")
+        sol0 = hard9_solutions()[0]
+        multi = np.where(np.isin(sol0, (1, 2)), 0, sol0).astype(np.int32)
+        st, _, body = _http(http_port, "/solve", {"sudoku": multi.tolist(), "count_all": True})
+        if st != 200 or body["count"] != count_solutions(multi, SUDOKU_9, limit=10_000):
+            raise AssertionError(f"(21) count_all: {st} {body}")
+        bulk = corpus[base:base + sizes["compile_bulk"]]
+        st, _, body = _http(http_port, "/solve_batch",
+                            {"lines": [to_line(b) for b in bulk], "size": 9})
+        if st != 200 or body["solved"] != len(bulk) or body["unsat"]:
+            raise AssertionError(f"(21) solve_batch: {st}, solved {body.get('solved')}")
+        b16 = [make_puzzle(SUDOKU_16, 100 + i, unique=False).astype(np.int32) for i in range(16)]
+        static = [corpus[base + 5000 + i] for i in range(sizes["compile_static"])] + b16
+        sres, swall = _post_all(api_c.port, static, threads=64, retry_429=False)
+        _check_answers(static, sres, geom_of, "(21) static")
+        if any(r[0] != 201 for r in sres):
+            raise AssertionError("(21) a static-flight request was not answered 201")
+        routes.append(_route_line("static", sres, swall, "[21]"))
+        m = _compile_section(http_port)
+        sec = m["compile"]
+        libraries = {name: {k: rec.get(k) for k in ("builds", "loads", "wall_ms_total")}
+                     for name, rec in sec["programs"].items()}
+        if libraries != nodes or sec["recompiles_total"] or sec["warmup_over"]:
+            raise AssertionError(f"(21) pass A built or loaded more than its first requests: {sec}")
+        if m["cost"]["efficiency"].get("suppressed") != "mixed_shapes":
+            raise AssertionError(f"(21) the gauge priced two shapes of the advance: {m['cost']}")
+        out["libraries"] = libraries
+        out["cache"] = sec["cache"]
+        log(f"[21] (a) after pass A, per library (builds, first loads, build ms): "
+            f"{json.dumps(libraries)}; cache {json.dumps(sec['cache'])}; count_all's static "
+            f"flight made the fused advance two shapes, so the gauge reads suppressed: "
+            f"mixed_shapes")
+        # (b) Seal, then a second pass: no build, no first load.
+        watch.seal()
+        mass_b = [corpus[base + sizes["compile_mass"] + i] for i in range(sizes["compile_mass"] // 2)]
+        res, wall = _post_all(http_port, mass_b, threads=sizes["serving_clients"])
+        _check_answers(mass_b, res, geom_of, "(21) pass B resident")
+        routes.append(_route_line("resident B", res, wall, "[21]"))
+        sres, _ = _post_all(api_c.port, static[:32], threads=32, retry_429=False)
+        _check_answers(static[:32], sres, geom_of, "(21) pass B static")
+        rflights = {rf.geom: rf for rf in eng._resident_flights()}
+        mflights = {mf.geom: mf for mf in eng._megastep_flights()}
+        syncs = _sync_turns(http_port, lambda: rflights[SUDOKU_9], lambda: mflights[SUDOKU_9],
+                            [corpus[base + 9000 + i] for i in range(sizes["compile_sync"])],
+                            hard9, watch)
+        out["syncs"] = syncs
+        sec = _compile_section(http_port)["compile"]
+        if sec["recompiles_total"] != 0 or not sec["warmup_over"] or sec["dumps"] != 0:
+            raise AssertionError(f"(21) (b) after the seal: {sec}")
+        log(f"[21] (b) sealed; pass B: 0 recompiles; host syncs in turns (warm-up, then "
+            f"watch on, off, off, on): {json.dumps(syncs)}")
+        # (c) First use of a library not loaded yet: K3 (a fused cover
+        # enumeration), then, after the re-arm, the cover probe's kernel.
+        # Both are on disk once the smoke's build is done: a first load each.
+        out["smoke_build"] = _smoke_build_seconds(smoke_build)
+        smoke_build = None
+        log(f"[21] the smoke's build beside the phase (no node's): "
+            f"{json.dumps({k: round(v, 2) for k, v in out['smoke_build'].items()})}")
+        with _LogLines(compilewatch.__name__) as lines:
+            t_load = time.monotonic()
+            queens = nqueens_cover(12)
+            res = solve_csp(queens.initial_state()[None], queens, cover_config(), device=dev)
+            if int(res.sol_count[0]) != COVER_COUNTS["nqueens12"]:
+                raise AssertionError(f"(21) n-queens 12 counted {int(res.sol_count[0])}")
+            sec = _compile_section(http_port)["compile"]
+            # Unarmed until rearm_s of quiet have passed since the load.
+            unarmed = time.monotonic() - t_load < rearm_s
+            alarms = [x for x in lines if x.startswith("[compile ")]
+            if (sec["recompiles_total"] != 1 or sec["programs"]["cover"].get("recompiles") != 1
+                    or sec["dumps"] != 1 or len(dumps()) != 1 or (unarmed and sec["armed"])
+                    or alarms != [x for x in alarms if x.startswith("[compile cover]")]
+                    or len(alarms) != 1):
+                raise AssertionError(f"(21) (c) first load of cover: {sec}, log {lines}, "
+                                     f"dumps {dumps()}")
+            doc = json.loads(open(os.path.join(dump_dir, dumps()[0])).read())
+            if doc["metrics"]["program"] != "cover" or doc["metrics"]["kind"] != "load":
+                raise AssertionError(f"(21) (c) the dump: {doc['metrics']}")
+            log(f"[21] (c) K3's first load after the seal: recompiles 1, log {alarms[0]!r}, "
+                f"dump {dumps()[0]}")
+            time.sleep(rearm_s + 0.5)
+            sec = _compile_section(http_port)["compile"]
+            if not sec["armed"]:
+                raise AssertionError(f"(21) (c) the alarm did not re-arm after {rearm_s} s")
+            cover_kernel.run_probe(dev)
+            sec = _compile_section(http_port)["compile"]
+            alarms = [x for x in lines if x.startswith("[compile ")]
+            if (sec["recompiles_total"] != 2 or sec["dumps"] != 2 or len(dumps()) != 2
+                    or len(alarms) != 2 or not alarms[1].startswith("[compile probe_cover]")):
+                raise AssertionError(f"(21) (c) after the re-arm: {sec}, log {lines}")
+        out["alarms"] = {"recompiles_total": sec["recompiles_total"], "dumps": dumps(),
+                         "log": alarms}
+        log(f"[21] (c) re-armed after {rearm_s} s of quiet; the cover probe's first load "
+            f"fired the second dump {dumps()[1]}")
+        # (d) The exports: Prometheus through promck, Perfetto through traceck.
+        st, _, text = _http(http_port, "/metrics?format=prometheus")
+        errors_prom = promck.check_text(text)
+        if st != 200 or errors_prom or "dsst_compile_programs_count" not in text:
+            raise AssertionError(f"(21) prometheus: {st} {errors_prom[:5]}")
+        st, _, doc = _http(http_port, "/trace?format=perfetto")
+        errors_trace = traceck.check(doc) if st == 200 else [f"status {st}"]
+        if errors_trace or not any(e.get("name") == "compile" for e in doc["traceEvents"]):
+            raise AssertionError(f"(21) perfetto: {errors_trace[:5]}")
+        log(f"[21] (d) /metrics?format=prometheus promck-clean ({len(text.splitlines())} lines); "
+            f"/trace?format=perfetto traceck-clean ({len(doc['traceEvents'])} events, the "
+            f"compile events among them)")
+        _sync(on_card)
+        launches = {"K2": cuda_step.fused_rounds_cuda.launches,
+                    "K1": cuda_propagate.propagate_fixpoint_cuda.launches,
+                    "K3": cuda_cover.cover_fused_rounds_cuda.launches}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"(21) a kernel of the phase never launched: {launches}")
+        out["routes"] = routes
+        out["launches"] = launches
+    finally:
+        if smoke_build is not None:
+            smoke_build.kill()
+            smoke_build.wait()
+        cli.make_engine = make_engine
+        stop.set()
+        node.join(60)
+        if api_c is not None:
+            api_c.stop()
+        if eng_c is not None:
+            eng_c.stop(timeout=10)
+        # --trace installed a recorder and a critical-path monitor for the
+        # node's life; the later phases run without them.
+        trace.install(None)
+        critpath.install(None)
+    if node.is_alive() or errors:
+        raise AssertionError(f"(21) the node did not stop cleanly: {errors}")
+    if compilewatch.active() is not None:
+        raise AssertionError("(21) cli.main left its compile watch installed")
+    # (e) The analysis runner over this checkout: the five AST rules in a
+    # process that must not import torch, then the kernel lane (the
+    # libraries' digests against the committed golden, the dtypes).
+    code = ("import sys\n"
+            "from distributed_sudoku_solver_tpu_torch.analysis.__main__ import main\n"
+            "rc = main(['--strict-waivers'])\n"
+            "assert 'torch' not in sys.modules, 'the AST lane imported torch'\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    ast_lane = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                              text=True, timeout=300)
+    ast_s = time.perf_counter() - t0
+    kernel_lane = subprocess.run(
+        [sys.executable, "-m", "distributed_sudoku_solver_tpu_torch.analysis", "--rule",
+         "kernelck"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    for name, proc in (("AST lane", ast_lane), ("kernelck", kernel_lane)):
+        if proc.returncode != 0:
+            raise AssertionError(f"(21) (e) analysis {name}: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out["analysis"] = {"ast_lane": ast_lane.stdout.strip().splitlines()[-1],
+                       "ast_lane_s": ast_s,
+                       "kernelck": kernel_lane.stdout.strip().splitlines()[-1]}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    log(f"[21] (e) analysis: {out['analysis']['ast_lane']} in {ast_s:.2f} s, no torch "
+        f"imported; kernelck: {out['analysis']['kernelck']}")
+    log(f"[21] {device['smi']}; phase wall {out['phase_wall_s']:.1f} s")
+    log(json.dumps({"compile": out}, default=str))
+    return launches, out["time_to_serving"], out["smoke_build"]
+
+
 def kernel_row(key: str, suffix: str = "", **fields) -> dict:
     name, source, replaces = KERNELS[key]
     return dict(name=name + suffix, route="cuda",
@@ -3202,6 +3639,8 @@ def main(argv=None) -> int:
                     help="phases 1-3 and the cluster phase (19) only (no result line)")
     ap.add_argument("--mesh", action="store_true",
                     help="phases 1-3 and the mesh phase (20) only (no result line)")
+    ap.add_argument("--compile", action="store_true",
+                    help="phases 1-3 and the compile-watch phase (21) only (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3223,11 +3662,13 @@ def main(argv=None) -> int:
         bulk_pass(corpus, dev, 3)  # warm-up, the build included
         log(json.dumps({"bulk": bulk_turns(corpus, dev, (3, 1, 1, 3), tag="[bulk]")}))
         return 0
-    build_s = phase_build()
     if args.breakdown:
+        phase_build()
         phase_breakdown(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
         phase_cover_breakdown(cover_frontiers(SIZES, dev), SIZES)
         return 0
+    if args.serving or args.frontdoor or args.cluster or args.mesh:
+        phase_build()
     corpus = phase_corpus(SIZES)
     if args.serving:
         _, minrem_nodes = phase_heads_main(corpus, SIZES, dev)
@@ -3241,6 +3682,13 @@ def main(argv=None) -> int:
         return 0
     if args.mesh:
         phase_mesh(corpus, device, SIZES, dev)
+        return 0
+    # Phase 21 runs first, on a process with no kernel library loaded: its
+    # node builds and loads every library under its compile watch, and
+    # phase 2 then reports ptxas's view of those builds.
+    compile_launches, serving_s, smoke_build_s = phase_compile(corpus, device, SIZES, dev)
+    phase_build()
+    if args.compile:
         return 0
     k1 = phase_k1(corpus, SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
@@ -3266,14 +3714,18 @@ def main(argv=None) -> int:
     frontdoor = phase_frontdoor(corpus, device, SIZES, dev)
     cluster = phase_cluster(corpus, device, SIZES, dev)
     mesh = phase_mesh(corpus, device, SIZES, dev)
-    log(f"[21] elapsed {time.perf_counter() - t_start:.1f} s, of which the build "
-        f"{build_s:.1f} s")
+    log(f"[22] elapsed {time.perf_counter() - t_start:.1f} s; node F answered its first request "
+        f"{serving_s['node_f_first_answer_s']:.1f} s after its start (K2's library built and "
+        f"loaded on that request), node C its first in {serving_s['node_c_first_request_s']:.1f} s "
+        f"(K1's); the smoke's build of the other five libraries beside phase 21 took "
+        f"{max(smoke_build_s.values(), default=0.0):.1f} s")
     kernels = [
-        kernel_row("K1", launches=comp_launches["K1"] + serving["K1"] + mesh["K1"], **k1),
+        kernel_row("K1", launches=comp_launches["K1"] + serving["K1"] + mesh["K1"]
+                   + compile_launches["K1"], **k1),
         kernel_row("K2", launches=main_launches["K2"] + serving["K2"] + frontdoor["K2"]
-                   + cluster["K2"] + mesh["K2"], **k2),
-        kernel_row("K3", launches=sum(cover_launches.values()) + mesh["K3"], max_abs_err=k3_err,
-                   **k3_rows["pentomino6x10"]),
+                   + cluster["K2"] + mesh["K2"] + compile_launches["K2"], **k2),
+        kernel_row("K3", launches=sum(cover_launches.values()) + mesh["K3"]
+                   + compile_launches["K3"], max_abs_err=k3_err, **k3_rows["pentomino6x10"]),
     ]
     kernels += [kernel_row("K2", f" {rule}", launches=head_launches[rule], **k2_heads[rule])
                 for rule in HEAD_RULES]

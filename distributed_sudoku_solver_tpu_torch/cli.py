@@ -22,10 +22,13 @@ What does not carry over from the JAX CLI:
   over ``parallel.default_mesh()`` (every visible card), with no resident
   or megastep flight, as in the JAX CLI; ``--mesh-devices N`` shards the
   resident flight over N cards (``serving/mesh_scheduler.py``);
-* the compile watch and cost plane wait for the port's observability slice
-  (ROADMAP A14): none is installed and ``/metrics`` has no ``compile`` or
-  ``cost`` section.  ``--no-compile-watch`` is accepted; a non-default
-  ``--compile-warmup``, ``--compile-rearm`` or ``--peak-gflops`` is refused;
+* the compile watch (``obs/compilewatch.py``, on by default,
+  ``--no-compile-watch`` turns it off) watches kernel-library builds and
+  first loads, not XLA compilations, and its cost plane counts int32
+  operations: ``--peak-gflops`` is read as the card's peak in G int32
+  ops/s.  ``--compile-warmup`` and ``--compile-rearm`` keep their meaning;
+  the watch is installed before the engine boots and uninstalled when
+  ``main`` returns;
 * ``--profile-dir`` traces with ``torch.profiler``: a bounded
   ``--profile-secs`` window runs on a thread of its own
   (``utils/profiling.start_profile_window``), ``--profile-secs 0`` traces
@@ -270,29 +273,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--no-compile-watch",
         action="store_true",
-        help="accepted for compatibility: the port installs no compile "
-        "watch yet (ROADMAP A14), so there is nothing to disable",
+        help="disable the compile watch (obs/compilewatch.py) — on by "
+        "default: per-library kernel builds, first loads and build walls "
+        "on /metrics, and after the warmup window an unexpected build or "
+        "first load logs [compile <program>], counts, and fires one "
+        "flight-recorder dump per excursion (with --trace)",
     )
     ap.add_argument(
         "--compile-warmup",
         type=float,
         default=300.0,
-        help="compile-watch warmup seconds: the port has no compile watch "
-        "yet (ROADMAP A14), so only the default is accepted",
+        help="seconds after boot during which kernel builds and first "
+        "loads are expected (the serving set loading once); afterwards "
+        "any is an unexpected-recompile alarm",
     )
     ap.add_argument(
         "--compile-rearm",
         type=float,
         default=300.0,
-        help="compile-watch re-arm seconds: only the default is accepted "
-        "until ROADMAP A14",
+        help="quiet seconds after which the one-dump-per-excursion "
+        "recompile alarm re-arms",
     )
     ap.add_argument(
         "--peak-gflops",
         type=float,
         default=None,
-        help="the cost plane's peak GFLOP/s: the port has no cost plane "
-        "yet (ROADMAP A14), so it is refused",
+        help="the card's peak rate for the cost plane, in G int32 ops/s "
+        "(operator-supplied; the port's cost model counts int32 "
+        "operations) — turns the achieved-rate gauge into a "
+        "device-efficiency ratio against the cost-model ceiling",
     )
     ap.add_argument(
         "--critpath-slow-ms",
@@ -400,23 +409,6 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", metavar="{solve-file}")
     build_solve_file_parser(sub)
     return ap
-
-
-# Compile-watch and cost-plane flags the port refuses until ROADMAP A14
-# brings those planes over: (dest, flag, the JAX CLI's default).
-_A14_FLAGS = (
-    ("compile_warmup", "--compile-warmup", 300.0),
-    ("compile_rearm", "--compile-rearm", 300.0),
-    ("peak_gflops", "--peak-gflops", None),
-)
-
-
-def check_port_flags(ap: argparse.ArgumentParser, args) -> None:
-    """Refuse, through ``ap.error``, what the port does not serve yet: a
-    non-default compile-watch or cost-plane value (ROADMAP A14)."""
-    for dest, flag, default in _A14_FLAGS:
-        if getattr(args, dest) != default:
-            ap.error(f"{flag} needs the port's compile watch and cost plane (ROADMAP A14)")
 
 
 def make_engine(args, device=None) -> SolverEngine:
@@ -566,17 +558,9 @@ def main(argv=None, *, device=None, stop: Optional[threading.Event] = None) -> N
     CPU in a thread of their own."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    check_port_flags(ap, args)
     if args.cmd == "solve-file":
         solve_file_main(args, device=device)
         return
-    import contextlib
-
-    from distributed_sudoku_solver_tpu_torch.utils.profiling import (
-        device_trace,
-        start_profile_window,
-    )
-
     if args.access_log:
         # The access logger emits INFO records; logging's lastResort
         # handler only surfaces WARNING+ — give it a real stderr handler
@@ -630,6 +614,38 @@ def main(argv=None, *, device=None, stop: Optional[threading.Event] = None) -> N
                 args.ordering_trace, sample_grids=args.ordering_sample
             )
         )
+    watch = None
+    if not args.no_compile_watch:
+        # On by default, installed BEFORE the engine boots so the warmup
+        # window covers the serving set's first builds and loads.  With no
+        # event, the watch costs nothing on the serving path.
+        from distributed_sudoku_solver_tpu_torch.obs import (
+            compilewatch as compilewatch_mod,
+        )
+
+        watch = compilewatch_mod.CompileWatch(
+            warmup_s=args.compile_warmup,
+            rearm_s=args.compile_rearm,
+            peak_gflops=args.peak_gflops,
+        )
+        compilewatch_mod.install(watch)
+    try:
+        _serve(args, device=device, stop=stop)
+    finally:
+        if watch is not None and compilewatch_mod.active() is watch:
+            compilewatch_mod.install(None)
+
+
+def _serve(args, *, device=None, stop: Optional[threading.Event] = None) -> None:
+    """Boot the node from the parsed flags and serve until ``stop`` (or
+    SIGTERM), then drain."""
+    import contextlib
+
+    from distributed_sudoku_solver_tpu_torch.utils.profiling import (
+        device_trace,
+        start_profile_window,
+    )
+
     slo_monitor = None
     if args.slo:
         from distributed_sudoku_solver_tpu_torch.obs import slo as slo_mod

@@ -9,6 +9,8 @@ never loads a stale library.  The compiler writes a temporary file named by
 process and thread, which is then renamed into place: threads and processes
 building at once (test workers, request threads) never load a partial
 file.  Within a process one lock (``native.build``) serialises the build.
+An installed compile watch (``obs/compilewatch.py``) hears of the build,
+with its seconds, and of the library's first load, as ``libcsp``.
 
 Without a compiler, :func:`available` is False and callers take the
 pure-Python oracle (``utils/oracle.py``), as in the JAX package: this is a
@@ -30,9 +32,11 @@ from typing import Optional, Tuple
 import numpy as np
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry, geometry_for_size
-from distributed_sudoku_solver_tpu_torch.obs import lockdep
+from distributed_sudoku_solver_tpu_torch.obs import compilewatch, lockdep
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
+#: The library's name in the compile watch's program registry.
+PROGRAM = "libcsp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # x86-64-v2 carries POPCNT, which the cover DFS counts columns with; a
 # library built here runs on any x86-64 host of the last decade.
@@ -85,9 +89,13 @@ def load() -> Optional[ctypes.CDLL]:
         if _build_failed:
             return None
         path = lib_path()
-        if not path.exists() and not _build(path):
+        built = not path.exists()
+        if built and not _build(path):
             _build_failed = True
             return None
+        cw = compilewatch.active()
+        if built and cw is not None:
+            cw.on_build(PROGRAM, build_seconds)
         try:
             lib = ctypes.CDLL(str(path))
         except OSError:
@@ -127,6 +135,8 @@ def load() -> Optional[ctypes.CDLL]:
         ]
         lib.cover_count_solutions.restype = ctypes.c_int64
         _lib = lib
+        if cw is not None:
+            cw.on_load(PROGRAM, built=built)
         return _lib
 
 

@@ -6,6 +6,9 @@ correlation (``logctx``), SLO burn monitoring (``slo``), Prometheus
 exposition and its lint (``prom``, ``promck``), critical-path attribution
 (``critpath``), lock-order tracing and the runtime lockdep witness
 (``ordertrace``, ``lockdep``, its hierarchy in ``lock_manifest``), cluster
-roll-ups (``agg``) and the tools' exit codes (``exitcodes``).  The JAX
-package's ``compilewatch`` (XLA compile accounting) has no counterpart yet.
+roll-ups (``agg``), the Chrome-trace validator (``traceck``) and the
+tools' exit codes (``exitcodes``).  ``compilewatch`` is the JAX watch's
+counterpart in torch terms: it watches kernel-library builds and first
+loads instead of XLA compilations, and its cost plane prices a serving
+round from a static model of the kernels' int32 operations.
 """

@@ -1,9 +1,9 @@
 """The *ck tool family's shared exit-code contract.
 
-``obs/traceck.py``, ``obs/promck.py`` and the source linter (the JAX
-package's ``analysis``) used to each imply their own
-convention; this module is the single documented scheme, asserted by
-their tests:
+``obs/traceck.py``, ``obs/promck.py`` and the source linter
+(``analysis/``, ``python -m distributed_sudoku_solver_tpu_torch.analysis``)
+share one convention; this module is the single documented scheme,
+asserted by their tests:
 
 * ``EXIT_CLEAN`` (0)      — input checked, no findings.
 * ``EXIT_VIOLATIONS`` (1) — the input was checkable and has findings

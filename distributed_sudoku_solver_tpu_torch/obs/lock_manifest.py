@@ -1,10 +1,14 @@
-"""The lock hierarchy that the runtime lockdep witness checks.
+"""The lock hierarchy of the port: the runtime witness's and deadck's.
 
-A copy of the two lock tables of the JAX package's ``analysis/manifest.py``
+The two lock tables of the JAX package's ``analysis/manifest.py``
 (``LOCK_RANKS`` and ``LOCK_EDGE_DECLARED``), which
-:func:`obs.lockdep.manifest_witness` loads.  The port keeps its own copy so
-that nothing here imports the JAX package; a test holds the two equal.
-Pure data, stdlib only.
+:func:`obs.lockdep.manifest_witness` loads and the port's static rules
+read through ``analysis/manifest.py``: this file is their one source in
+the port.  The port keeps its own copy so that nothing here imports the
+JAX package.  Every lock the two packages share keeps the JAX rank, and a
+test holds the shared entries equal; the port's own locks
+(``PORT_ONLY_LOCKS``, locks the JAX package does not have) rank in its
+gaps.  Pure data, stdlib only.
 """
 
 # -- deadck --------------------------------------------------------------
@@ -111,7 +115,17 @@ LOCK_RANKS = {
     "cluster.dhtcache": 48,   # cluster/dht/cluster_cache.py ClusterCache._lock
     "cluster.ring": 49,       # cluster/node.py ClusterNode._ring_lock
     "native.build": 50,       # native/__init__.py _lock (libcsp build)
+    # Port-only: the CUDA kernel libraries' build-and-load lock (RLock:
+    # load holds it across its own build).  Kernels are first used from
+    # the device loop, the megastep flight (under serving.megastep, 36)
+    # and race threads, and the compile watch's hooks run under it
+    # (ops.cuda_build 51 -> obs.compilewatch 60 -> obs.trace / obs.hist).
+    "ops.cuda_build": 51,     # ops/cuda_build.py _build_lock (RLock)
     "utils.profile_window": 52,  # utils/profiling.py _window_lock
+    # Port-only: the virtual-device count of parallel/mesh.py, a leaf taken
+    # by visible_devices under serving.engine (30) when the engine builds a
+    # mesh flight.
+    "parallel.mesh": 53,      # parallel/mesh.py _virtual_lock
     "obs.compilewatch": 60,   # obs/compilewatch.py CompileWatch._lock
     "obs.critpath": 62,       # obs/critpath.py CritPathMonitor._lock
     "obs.trace": 64,          # obs/trace.py TraceRecorder._lock
@@ -121,6 +135,9 @@ LOCK_RANKS = {
     "utils.statwindow": 69,   # utils/profiling.py StatWindow._lock (pure leaf)
     "cluster.simnet": 72,     # cluster/simnet.py SimNet._cond
 }
+
+#: Locks of the port that the JAX package does not have.
+PORT_ONLY_LOCKS = ("ops.cuda_build", "parallel.mesh")
 
 # Blessed edges the rank order alone does not express — each carries its
 # why, so the re-entrancy contracts review rounds kept re-deriving by
@@ -172,6 +189,20 @@ LOCK_EDGE_DECLARED = {
         "LatencyHistogram.record on the compiling thread"
     ),
 }
+# Port-only declared edges: the port's own run-time acquisitions that the
+# static graph cannot see.
+PORT_ONLY_EDGES = {
+    # The megastep flight's first flight loads its kernel library (K2, or
+    # K1 for a composite megastep with propagator="pallas") inside the
+    # flight lock: rank-upward (serving.megastep 36 < ops.cuda_build 51),
+    # and invisible to statics because the advance is an attribute call
+    # (``self._advance_fn``) deadck cannot resolve.
+    ("serving.megastep", "ops.cuda_build"): (
+        "first kernel use under the flight lock: the megastep's advance "
+        "(an attribute call) loads its library through ops.cuda_build.load"
+    ),
+}
+LOCK_EDGE_DECLARED.update(PORT_ONLY_EDGES)
 LOCK_EDGE_DECLARED.update({
     ("obs.slo", target): _SLO_DUMP_REASON
     for target in (

@@ -13,11 +13,14 @@ runs; ``"clocks"`` compiles the same source with ``-DDSST_STAGE_CLOCKS``
 stage breakdowns load.  ``probe_uint16`` and ``probe_cover`` are the
 ports of the two Mosaic probes (``probes/``).
 Nothing here runs when the module is imported.  Building and loading are
-serialised by one process-wide lock: a server launches kernels from its
-device loop and from its request threads, and the first use of a library
-may come from two of them at once.  Every failure to build, load or
-launch a kernel raises :class:`KernelError`, and a failed build is not
-tried again in the same process.
+serialised by one process-wide lock (``ops.cuda_build`` in the lock
+hierarchy): a server launches kernels from its device loop and from its
+request threads, and the first use of a library may come from two of them
+at once.  Every failure to build, load or launch a kernel raises
+:class:`KernelError`, and a failed build is not tried again in the same
+process.  An installed compile watch (``obs/compilewatch.py``) hears of
+each build, with its seconds, and of each library's first load; the
+cached path of :func:`load` reaches no watch.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from distributed_sudoku_solver_tpu_torch.obs import compilewatch, lockdep
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -49,7 +54,7 @@ _loaded: dict[tuple[str, str], ctypes.CDLL] = {}
 # A library's path -> why it could not be built or loaded.
 _failed: dict[Path, str] = {}
 # Re-entrant: ``load`` holds it across its own call of ``build``.
-_build_lock = threading.RLock()
+_build_lock = lockdep.named_rlock("ops.cuda_build")  # lockck: name(ops.cuda_build)
 
 
 class KernelError(RuntimeError):
@@ -106,7 +111,12 @@ def build(targets=TARGETS) -> dict[str, float]:
     start to its own nvcc's exit.  Temporary outputs are named by process
     and thread, so no two threads ever write one file."""
     with _build_lock:
-        return _build(targets)
+        seconds = _build(targets)
+        cw = compilewatch.active()
+        if cw is not None:
+            for lib, s in seconds.items():
+                cw.on_build(lib, s)
+        return seconds
 
 
 def _build(targets) -> dict[str, float]:
@@ -160,12 +170,15 @@ def load(name: str, variant: str = "") -> ctypes.CDLL:
                 if path in _failed:
                     raise KernelError(_failed[path])
                 try:
-                    build(((name, variant),))
+                    built = build(((name, variant),))
                     lib = ctypes.CDLL(str(path))
                 except (KernelError, OSError) as e:
                     _failed[path] = f"{name}.cu {variant}: {e}"
                     raise KernelError(_failed[path]) from e
                 _loaded[name, variant] = lib
+                cw = compilewatch.active()
+                if cw is not None:
+                    cw.on_load(lib_name(name, variant), built=bool(built))
     return lib
 
 

@@ -18,15 +18,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
 from typing import Iterator, Optional, Sequence
 
 import torch
 
+from distributed_sudoku_solver_tpu_torch.obs import lockdep
+
 # Name of the mesh axis the frontier lane dimension is sharded over.
 LANE_AXIS = "lanes"
 
-_virtual_lock = threading.Lock()
+_virtual_lock = lockdep.named_lock("parallel.mesh")  # lockck: name(parallel.mesh)
 _virtual_count = 0  # > 0 inside virtual_devices(n): n shards on one device
 
 

@@ -48,9 +48,12 @@ mesh flight (``serving/mesh_scheduler.py``) over the first N devices that
 ``parallel.mesh.visible_devices`` gives; with fewer, the engine counts
 ``mesh_unfit`` and serves on one device.
 
-Left out, for a later item of the roadmap: the compile watch and its cost
-plane (A14: ``/metrics`` has no ``compile`` or ``cost`` section, as a JAX
-engine without a watch installed).
+With a compile watch installed (``obs/compilewatch.py``; the CLI installs
+one by default) ``/metrics`` carries its ``compile`` section, and ``cost``
+once a flight has been born: each flight prices its advance program once
+per shape (``ops/cost.advance_round_cost``, host arithmetic on the shape),
+and the device-efficiency gauge prices the rounds and walls of the static,
+resident and megastep flights with it, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -67,10 +70,18 @@ import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry, geometry_for_size
-from distributed_sudoku_solver_tpu_torch.obs import critpath, lockdep, ordertrace, slo, trace
+from distributed_sudoku_solver_tpu_torch.obs import (
+    compilewatch,
+    critpath,
+    lockdep,
+    ordertrace,
+    slo,
+    trace,
+)
 from distributed_sudoku_solver_tpu_torch.obs.hist import LatencyHistogram, MinEstimator
 from distributed_sudoku_solver_tpu_torch.obs.logctx import job_log, uuids_label
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import decode_grid, encode_grid
+from distributed_sudoku_solver_tpu_torch.ops.cost import advance_round_cost
 from distributed_sudoku_solver_tpu_torch.ops.cuda_build import KernelError
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     Frontier,
@@ -124,6 +135,7 @@ def host_fetch(x, floor_s: float = 0.0, tag: str = "status"):
     is the matching numpy tree, all tensors copied in one transfer."""
     faults.fire("fetch." + tag)
     if floor_s:
+        # clockck: allow(simulated RPC floor: sleeping at the sync IS this seam's documented behavior)
         time.sleep(floor_s)
     if isinstance(x, torch.Tensor):
         return _tensors_to_host([x])[0]
@@ -139,7 +151,7 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     the array is staged in pinned memory and copied asynchronously (a copy
     from pageable memory would first drain the stream).  The caching host
     allocator keeps the staging buffer until the copy has run."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    t = torch.from_numpy(np.ascontiguousarray(a))  # syncck: allow(the host-to-device direction: a is a host array by contract, made contiguous for from_numpy)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
@@ -585,7 +597,7 @@ class SolverEngine:
         this submit into the megastep (``None`` defers to the engine's
         ``latency_mode``): the job is served on the caller's thread, and a
         megastep that cannot serve it degrades to the chunked paths."""
-        g = np.asarray(grid, dtype=np.int32)
+        g = np.asarray(grid, dtype=np.int32)  # syncck: allow(client input coercion at submit time — list/ndarray host data, not the hot loop)
         geom = geom or geometry_for_size(g.shape[0])
         if g.shape != (geom.n, geom.n):
             raise ValueError(f"grid shape {g.shape} does not match geometry {geom}")
@@ -791,7 +803,7 @@ class SolverEngine:
     ) -> Job:
         """Submit a job whose search space is given subtree roots (candidate
         rows uint32[R, h, w]): checkpoint resume and mid-job offload."""
-        r = np.ascontiguousarray(np.asarray(roots, dtype=np.uint32))
+        r = np.ascontiguousarray(np.asarray(roots, dtype=np.uint32))  # syncck: allow(resume payload coercion at submit time — wire-decoded host rows, not the hot loop)
         if r.ndim != 3 or r.shape[1:] != (geom.n, geom.n):
             raise ValueError(f"roots shape {r.shape} does not match geometry {geom}")
         if r.shape[0] == 0:
@@ -965,7 +977,36 @@ class SolverEngine:
             out["critpath"] = cp.metrics()
         if hist_sec:
             out["hist"] = hist_sec
-        # No `compile` / `cost` sections: the compile watch is ROADMAP A14.
+        cw = compilewatch.active()
+        if cw is not None:
+            # The compile watch (obs/compilewatch.py): per-library builds,
+            # first loads and walls, warmup/alarm state, and, once a flight
+            # has priced its advance program, the cost plane with the live
+            # device-efficiency gauge.
+            out["compile"] = cw.metrics()
+            cost = cw.cost_metrics()
+            if cost is not None:
+                # Rounds and walls from every serving loop: static chunks,
+                # resident rounds, and megastep flights (whose wall is the
+                # whole flight's, the only wall its one sync observes).
+                rounds = self._chunk_steps_total
+                wall = self._chunk_wall_total
+                for rf in resident_flights:
+                    rounds += rf.rounds_total
+                    wall += rf.round_wall_total
+                for mf in megastep_flights:
+                    rounds += mf.rounds_total
+                    wall += mf.round_wall_total
+                eff = cw.efficiency(
+                    compilewatch.ADVANCE_FUSED_STATUS
+                    if self.config.step_impl == "fused"
+                    else compilewatch.ADVANCE_STATUS,
+                    rounds,
+                    wall,
+                )
+                if eff is not None:
+                    cost["efficiency"] = eff
+                out["cost"] = cost
         floor = self.rpc_floor.to_dict()
         if floor is not None:
             out["rpc_floor_ms"] = floor
@@ -1395,6 +1436,23 @@ class SolverEngine:
                 node=self.trace_node, uuids=live_uuids, chunk=fl.chunks,
                 geometry=f"{fl.geom.n}x{fl.geom.n}",
             )
+        cw = compilewatch.active()
+        if cw is not None and fl.chunks == 1:
+            # The cost-plane seam: once per (program, shape) ever, and the
+            # flight-birth guard bounds even the key to one per flight.
+            # The model is host arithmetic on the shape (.shape is host
+            # metadata): no device read, so no added sync.
+            lanes = fl.state.has_top.shape[0]
+            cw.capture_cost(
+                compilewatch.ADVANCE_FUSED_STATUS
+                if fl.config.step_impl == "fused"
+                else compilewatch.ADVANCE_STATUS,
+                (fl.geom.n, lanes, fl.config.stack_slots, fl.config.step_impl),
+                lambda: advance_round_cost(fl.geom, lanes, fl.config.rules),
+                geometry=f"{fl.geom.n}x{fl.geom.n}",
+                lanes=lanes,
+                chunk_steps=self.chunk_steps,
+            )
         if prev_status is None:
             return False  # newborn flight: a full dispatch ahead from birth
         tr1 = rec.now() if rec is not None else 0.0
@@ -1607,7 +1665,7 @@ class SolverEngine:
         return fl.jobs[i].uuid, rows, dataclasses.asdict(fl.config)
 
     # -- legacy one-dispatch path (solve_fn overrides) ------------------------
-    def _solve_group(self, geom: Geometry, group: list[Job],
+    def _solve_group(self, geom: Geometry, group: list[Job],  # syncck: allow(legacy one-dispatch path: solve_fn overrides return device values and blocking fetches are its documented semantics)
                      cfg: Optional[SolverConfig] = None) -> None:
         cfg = cfg or self.config
         if cfg.lanes > 0 and len(group) > cfg.lanes:
@@ -1615,6 +1673,7 @@ class SolverEngine:
                 self._solve_group(geom, group[i : i + cfg.lanes], cfg)
             return
         if self.handicap_s:
+            # clockck: allow(slow-node simulator: the legacy solve_fn path charges its handicap per batch, by design)
             time.sleep(self.handicap_s)
         for job in group:
             if job.roots is not None:

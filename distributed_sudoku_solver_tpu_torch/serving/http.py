@@ -313,6 +313,7 @@ class _Handler(BaseHTTPRequestHandler):
                         attempts += 1
                         with engine._lock:
                             engine.fault_bulk_retries += 1
+                        # clockck: allow(bulk retry backoff on a real HTTP worker thread — socket lane only, deadline-capped)
                         time.sleep(min(0.05 * 2**attempts, 1.0, max(0.0, deadline - self._now())))
                         continue
                     return self._send(500, {"error": str(e), "done": int(lo)})

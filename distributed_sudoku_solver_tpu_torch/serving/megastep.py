@@ -43,7 +43,8 @@ import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
-from distributed_sudoku_solver_tpu_torch.obs import lockdep, trace
+from distributed_sudoku_solver_tpu_torch.obs import compilewatch, lockdep, trace
+from distributed_sudoku_solver_tpu_torch.ops.cost import advance_round_cost
 from distributed_sudoku_solver_tpu_torch.ops.frontier import unpack_status
 from distributed_sudoku_solver_tpu_torch.serving import engine as engine_mod
 from distributed_sudoku_solver_tpu_torch.serving import faults
@@ -102,10 +103,12 @@ class MegastepFlight:
             from distributed_sudoku_solver_tpu_torch.ops.cuda_step import advance_megastep_fused
 
             self._advance_fn = advance_megastep_fused
+            self._advance_prog = compilewatch.ADVANCE_MEGASTEP_FUSED
         else:
             from distributed_sudoku_solver_tpu_torch.ops.frontier import advance_megastep
 
             self._advance_fn = advance_megastep
+            self._advance_prog = compilewatch.ADVANCE_MEGASTEP
         self.mailbox = None  # lockck: guard(_lock) — the device-resident frontier (lazy)
         self._steps_seen = 0  # lockck: guard(_lock)
         self._lock = lockdep.named_lock("serving.megastep")  # lockck: name(serving.megastep)
@@ -118,6 +121,10 @@ class MegastepFlight:
         self.degraded_fault = 0  # lockck: guard(_lock)
         self.breaker_deflected = 0  # lockck: guard(_lock)
         self.chunks_total = 0  # lockck: guard(_lock)
+        # Round and wall totals for the device-efficiency gauge (the
+        # engine sums them with the resident ones).
+        self.rounds_total = 0  # lockck: guard(_lock)
+        self.round_wall_total = 0.0  # lockck: guard(_lock)
         self.flight_wall = StatWindow()  # whole-flight seconds
 
     def solve(self, job) -> bool:
@@ -130,11 +137,15 @@ class MegastepFlight:
             with self._lock:
                 self.breaker_deflected += 1
             return False
+        # The obs singletons are read before the flight lock: the lookups
+        # take no lock, and keeping them out of the locked region keeps
+        # the static lock graph exact.
         rec = trace.active()
+        cw = compilewatch.active()
         inj = faults.active()
         with self._lock:
             try:
-                verdict = self._fly_locked(job, rec, inj)
+                verdict = self._fly_locked(job, rec, cw, inj)
             except Exception as exc:  # noqa: BLE001 - degrade, never error the job
                 kind = faults.classify(exc)
                 self.degraded_fault += 1
@@ -151,7 +162,11 @@ class MegastepFlight:
             self.flights += 1
             info, chunks, nodes, sol_counts, overflowed, solutions, wall = verdict
             self.chunks_total += chunks
+            delta = int(info["steps"]) - self._steps_seen
             self._steps_seen = int(info["steps"])
+            if delta > 0:
+                self.rounds_total += delta
+                self.round_wall_total += wall
             if bool(info["solved"][0]):
                 self.flights_solved += 1
             elif not bool(info["has_work"][0]) and not bool(overflowed[0]):
@@ -176,7 +191,7 @@ class MegastepFlight:
         self.engine._finish_job(job)
         return True
 
-    def _fly_locked(self, job, rec, inj) -> tuple:
+    def _fly_locked(self, job, rec, cw, inj) -> tuple:
         """One flight under the lock: attach -> megastep -> verdict -> the
         ONE host fetch -> detach.  Returns the host-side payload."""
         t0 = self.engine._clock()
@@ -203,6 +218,17 @@ class MegastepFlight:
         self.mailbox, status_dev, chunks = self._advance_fn(
             self.mailbox, self.cfg.chunk_steps, self.cfg.max_chunks, geom, config
         )
+        if cw is not None and self.flights == 0:
+            # The cost-plane seam: once per (program, shape), from the
+            # shape alone (no device read).
+            lanes = config.lanes
+            cw.capture_cost(
+                self._advance_prog,
+                (geom.n, lanes, config.stack_slots, config.step_impl, "megastep"),
+                lambda: advance_round_cost(geom, lanes, config.rules),
+                geometry=f"{geom.n}x{geom.n}", lanes=lanes,
+                chunk_steps=self.cfg.chunk_steps, max_chunks=self.cfg.max_chunks,
+            )
         tr1 = rec.now() if rec is not None else 0.0
         raw_status, nodes, sol_counts, overflowed, solutions = engine_mod.host_fetch(
             (status_dev, *_verdict(self.mailbox)), floor_s=self.engine.handicap_s,

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
-from distributed_sudoku_solver_tpu_torch.obs import lockdep
+from distributed_sudoku_solver_tpu_torch.obs import compilewatch, lockdep
 from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
 from distributed_sudoku_solver_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from distributed_sudoku_solver_tpu_torch.parallel.mesh_resident import (
@@ -128,6 +128,9 @@ class MeshResidentFlight(ResidentFlight):
     def _rebase_state(self):
         return [s._replace(steps=torch.zeros_like(s.steps),
                            lane_rounds=torch.zeros_like(s.lane_rounds)) for s in self.state]
+
+    def _advance_program(self) -> str:
+        return compilewatch.MESH_ADVANCE_STATUS
 
     def _advance_state(self):
         if faults.active() is not None:

@@ -197,7 +197,7 @@ def race_native(
         job.cancelled = bool(cancelled)
         job.solution = (
             None if solution is None
-            else np.asarray(solution, np.int32)  # the native DFS's host array
+            else np.asarray(solution, np.int32)  # syncck: allow(native DFS result — ctypes host array, no device value)
         )
         job.nodes = int(nodes)
         job.error = error
@@ -419,13 +419,14 @@ def race_cover(
             while limit < cfg.max_steps and not done.is_set():
                 limit = min(limit + dispatch_steps, cfg.max_steps)
                 state = run_frontier(state, problem, cfg, step_limit=limit)
-                # The between-dispatch liveness poll: one host read per chunk.
+                # syncck: allow(the between-dispatch liveness poll — the watchdog discipline's one deliberate sync per chunk)
                 if not bool(frontier_live(state).any()):
                     break
             if done.is_set():
                 results.put(None)  # lost the race; release the device
                 return
             res = finalize_frontier(state)
+            # syncck: allow(terminal verdict fetch — the race is over for this entrant, nothing left to overlap)
             count, unsat, nodes = (int(x) for x in torch.stack(
                 (res.sol_count[0], res.unsat[0].to(torch.int32), res.nodes[0])).cpu())
             complete = bool(unsat)

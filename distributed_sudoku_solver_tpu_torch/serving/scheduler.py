@@ -42,9 +42,10 @@ import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
-from distributed_sudoku_solver_tpu_torch.obs import lockdep, trace
+from distributed_sudoku_solver_tpu_torch.obs import compilewatch, lockdep, trace
 from distributed_sudoku_solver_tpu_torch.obs.logctx import uuids_label
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import decode_grid, encode_grid
+from distributed_sudoku_solver_tpu_torch.ops.cost import advance_round_cost
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     Frontier,
     SolverConfig,
@@ -204,6 +205,12 @@ class ResidentFlight:
         self.chunk_wall = StatWindow()  # per-chunk status-sync wall
         self.dispatch_wall = StatWindow()  # host time enqueueing a round's work
         self.event_wall = StatWindow()  # detach-round verdict fetches
+        # Frontier-round and status-sync wall totals (the device loop is
+        # the one writer), summed by the engine's device-efficiency gauge
+        # (obs/compilewatch.py) so a resident-serving node lights it.
+        self.rounds_total = 0
+        self.round_wall_total = 0.0
+        self._steps_seen = 0
 
     # -- strategy hooks (the mesh flight swaps the device programs) ---------
     def _solver_config(self, base: SolverConfig, geom: Geometry, rcfg: ResidentConfig
@@ -231,6 +238,13 @@ class ResidentFlight:
             steps=torch.zeros_like(self.state.steps),
             lane_rounds=torch.zeros_like(self.state.lane_rounds),
         )
+
+    def _advance_program(self) -> str:
+        """The registry name the cost plane prices this flight's advance
+        under (``analysis/manifest.py``)."""
+        if self.config.step_impl == "fused":
+            return compilewatch.ADVANCE_FUSED_STATUS
+        return compilewatch.ADVANCE_STATUS
 
     def _advance_state(self):
         """Dispatch one bounded-step chunk: ``(new state, status word)``."""
@@ -372,6 +386,15 @@ class ResidentFlight:
         self.engine.hist["chunk_wall_ms"].record(sync_s)
         self.engine.rpc_floor.record(sync_s)
         self.chunks += 1
+        # Round and wall totals for the device-efficiency gauge.  A
+        # negative delta is the rebase's reset: take the new baseline and
+        # skip the sample.
+        steps = self._status["steps"]
+        delta = steps - self._steps_seen
+        self._steps_seen = steps
+        if delta > 0:
+            self.rounds_total += delta
+            self.round_wall_total += sync_s
         # A consumed chunk is the breaker's success.
         if rec is None:
             self.breaker.record_success()
@@ -545,6 +568,21 @@ class ResidentFlight:
             rec.record(None, "resident.chunk.dispatch", "resident.advance", tr0,
                        node=self.engine.trace_node,
                        uuids=[j.uuid for j in self.slots if j is not None])
+        cw = compilewatch.active()
+        if cw is not None and self.chunks == 0:
+            # The cost-plane seam, the engine's twin: once per (program,
+            # resident shape), from the shape alone (no device read).
+            lanes = self.config.lanes
+            cw.capture_cost(
+                self._advance_program(),
+                (self.geom.n, lanes, self.config.stack_slots, self.config.step_impl,
+                 "resident"),
+                lambda: advance_round_cost(self.geom, lanes, self.config.rules),
+                geometry=f"{self.geom.n}x{self.geom.n}",
+                lanes=lanes,
+                chunk_steps=self.rcfg.chunk_steps,
+                resident=True,
+            )
 
     def on_failure(self, exc: BaseException) -> None:
         """A device program died mid-round: drop the state, charge every

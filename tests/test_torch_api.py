@@ -314,7 +314,7 @@ def test_metrics_endpoint_and_window():
         assert body["job_latency_ms"]["count"] >= 1
         assert body["job_latency_ms"]["p50"] > 0
         assert body["batch_jobs"]["p50"] >= 1
-        assert "compile" not in body and "cost" not in body  # no compile watch (A14)
+        assert "compile" not in body and "cost" not in body  # no compile watch installed
     finally:
         api.stop()
         engine.stop()
@@ -344,7 +344,7 @@ def test_solve_count_all_endpoint(server, jax_server):
 
 
 def test_trace_endpoints(server):
-    from distributed_sudoku_solver_tpu.obs import traceck
+    from distributed_sudoku_solver_tpu_torch.obs import traceck
 
     status, body = _request(server, "/trace")
     assert status == 404 and "tracing disabled" in body["error"]

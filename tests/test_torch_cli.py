@@ -2,8 +2,10 @@
 package's.
 
 The parser carries every flag of the JAX parser with the same default;
-the compile-watch values are refused, naming the ROADMAP item they wait
-for; ``--sharded`` serves through ``parallel.solve_batch_sharded``.  ``make_engine`` and ``main`` run on the card unless a
+``main`` installs the compile watch by default (``--no-compile-watch``
+leaves none) with ``--compile-warmup``, ``--compile-rearm`` and
+``--peak-gflops`` served; ``--sharded`` serves through
+``parallel.solve_batch_sharded``.  ``make_engine`` and ``main`` run on the card unless a
 test passes ``device="cpu"``: without a card ``make_engine(args)`` raises
 instead of running on the CPU.  ``solve-file`` writes the JAX CLI's lines,
 and ``main`` boots a cluster node that serves HTTP and drains on stop.
@@ -25,7 +27,7 @@ from distributed_sudoku_solver_tpu.utils import dataset as jdataset
 from distributed_sudoku_solver_tpu.utils.puzzles import make_puzzle as jmake_puzzle
 from distributed_sudoku_solver_tpu.utils.puzzles import to_line as jto_line
 from distributed_sudoku_solver_tpu_torch import cli
-from distributed_sudoku_solver_tpu_torch.obs import lockdep
+from distributed_sudoku_solver_tpu_torch.obs import compilewatch, lockdep, promck
 from distributed_sudoku_solver_tpu_torch.utils.oracle import is_valid_solution
 from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
@@ -75,25 +77,98 @@ def test_every_jax_flag_exists_with_an_equal_default(which):
     )
 
 
+class _Node:
+    """``cli.main(argv)`` on the CPU in a thread of its own, up until the
+    block ends: ``port`` is its HTTP port, ``watch`` the compile watch
+    installed while it ran (None: none was)."""
+
+    def __init__(self, extra):
+        self.port, p2p = _free_port(), _free_port()
+        self.argv = ["-p", str(self.port), "-s", str(p2p), "--host", "127.0.0.1",
+                     "--advertise-host", "127.0.0.1", "--lanes", "16", *extra]
+        self.stop = threading.Event()
+        self.errors = []
+        self.watch = None
+
+    def __enter__(self):
+        def run():
+            try:
+                cli.main(self.argv, device="cpu", stop=self.stop)
+            except BaseException as e:  # surfaced on exit
+                self.errors.append(e)
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        up = threading.Event()
+        for _ in range(600):
+            try:
+                _http(self.port, "/network", timeout=1)
+                up.set()
+                break
+            except OSError:
+                up.wait(0.1)
+        assert up.is_set(), self.errors
+        self.watch = compilewatch.active()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(60)
+        assert not self.thread.is_alive() and not self.errors, self.errors
+
+
 @pytest.mark.parametrize(
-    "argv, item",
+    "argv, field, value",
     [
-        (["--compile-warmup", "10"], "A14"),
-        (["--compile-rearm", "1"], "A14"),
-        (["--peak-gflops", "1000"], "A14"),
+        (["--compile-warmup", "10"], "warmup_s", 10.0),
+        (["--compile-rearm", "1"], "rearm_s", 1.0),
+        (["--peak-gflops", "1000"], "peak_gflops", 1000.0),
     ],
 )
-def test_unported_flags_exit_naming_their_roadmap_item(argv, item, capsys):
-    with pytest.raises(SystemExit) as ei:
-        cli.main(argv, device="cpu")
-    assert ei.value.code == 2
-    assert item in capsys.readouterr().err
+def test_compile_watch_flags_boot_a_watched_node(argv, field, value):
+    """Each compile-watch flag boots a node whose watch carries it: the
+    warmup window, the re-arm period, or the peak the cost plane prices
+    against (then, after a device solve, a device efficiency in (0, 1]).
+    ``/metrics`` has the ``compile`` section, promck-clean, and the watch
+    is uninstalled when ``main`` returns."""
+    with _Node(argv + ["--no-frontdoor"]) as node:
+        w = node.watch
+        assert isinstance(w, compilewatch.CompileWatch)
+        got = {"warmup_s": w._warmup_until - w.installed_at, "rearm_s": w.rearm_s,
+               "peak_gflops": w.peak_gflops}
+        assert got[field] == pytest.approx(value)
+        code, body = _http(node.port, "/solve", {"sudoku": np.asarray(HARD_9[0]).tolist()})
+        assert code == 201 and is_valid_solution(np.asarray(body["solution"]))
+        code, m = _http(node.port, "/metrics")
+        assert code == 200 and m["compile"]["registered"] == len(
+            compilewatch.manifest.COMPILED_PROGRAMS)
+        cost = m["cost"]["programs"]["advance_status"]
+        assert cost["unit"] == "int32_ops" and cost["flops"] > 0 and cost["lanes"] == 128
+        if field == "peak_gflops":
+            eff = m["cost"]["efficiency"]
+            assert eff["peak_gflops"] == 1000.0 and 0 < eff["device_efficiency"] <= 1
+        req = urllib.request.Request(f"http://127.0.0.1:{node.port}/metrics?format=prometheus")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert promck.check_text(r.read().decode()) == []
+    assert compilewatch.active() is None
 
 
 def test_no_compile_watch_and_default_compile_values_are_accepted():
-    ap = cli.build_parser()
-    for argv in ([], ["--no-compile-watch"], ["--compile-warmup", "300"]):
-        cli.check_port_flags(ap, ap.parse_args(argv))
+    """The default boots with a watch installed, at the JAX CLI's values;
+    ``--no-compile-watch`` leaves none, and ``/metrics`` then has no
+    ``compile`` section."""
+    with _Node([]) as node:
+        w = node.watch
+        assert isinstance(w, compilewatch.CompileWatch)
+        assert w.rearm_s == 300.0 and w.peak_gflops is None
+        assert w._warmup_until - w.installed_at == pytest.approx(300.0)
+        code, m = _http(node.port, "/metrics")
+        assert code == 200 and "compile" in m
+    assert compilewatch.active() is None
+    with _Node(["--no-compile-watch"]) as node:
+        assert node.watch is None
+        code, m = _http(node.port, "/metrics")
+        assert code == 200 and "compile" not in m and "cost" not in m
 
 
 def test_cli_frontdoor_flags():

@@ -4,11 +4,10 @@ port's cluster node.
 From ``tests/test_cluster_obs.py``: the 3-node ``METRICS_PULL`` merge on
 the virtual clock (the rollup is the vector sum of the per-node bodies,
 bit-identical across two runs), a partitioned member flagged
-``unreachable``, and the critpath federation (the compile-watch half waits
-for the port's compile watch, ROADMAP A14).  From ``tests/test_obs.py``: the
-2-node stitched trace with a permanent-fault dump and its Perfetto export
-(checked by the JAX package's ``obs/traceck`` validator, which is plain
-Python), and promck over a live gossip member.  From
+``unreachable``, and the compile-watch and critpath federation.  From
+``tests/test_obs.py``: the 2-node stitched trace with a permanent-fault
+dump and its Perfetto export (checked by the port's ``obs/traceck``), and
+promck over a live gossip member.  From
 ``tests/test_critpath.py``: the 2-node partition of a stitched trace on the
 virtual clock.  From ``tests/test_journal.py``: drain with peer handoff and
 the kill/restart chaos soak with zero accepted-job loss.
@@ -23,10 +22,20 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_sudoku_solver_tpu.obs import traceck
 from distributed_sudoku_solver_tpu_torch.cluster.node import ClusterConfig, ClusterNode
 from distributed_sudoku_solver_tpu_torch.cluster.simnet import SimNet, wait_until
-from distributed_sudoku_solver_tpu_torch.obs import agg, critpath, hist, lockdep, prom, promck, slo, trace
+from distributed_sudoku_solver_tpu_torch.obs import (
+    agg,
+    compilewatch,
+    critpath,
+    hist,
+    lockdep,
+    prom,
+    promck,
+    slo,
+    trace,
+    traceck,
+)
 from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
 from distributed_sudoku_solver_tpu_torch.serving import faults
 from distributed_sudoku_solver_tpu_torch.serving.engine import SolverEngine
@@ -72,6 +81,7 @@ def _clean_seams():
     trace.install(None)
     slo.install(None)
     critpath.install(None)
+    compilewatch.install(None)
 
 
 @pytest.fixture
@@ -273,6 +283,60 @@ def test_cluster_scope_merge_federates_critpath():
             assert cp["attribution_ms"]["queue"] == pytest.approx(300.0)
             assert cp["shares_pct"]["sync"] == pytest.approx(75.0)
             assert hist.hist_count(ru["hist"]["critpath_sync_ms"]) == 3
+    finally:
+        for n in nodes:
+            n.kill()
+        for e in engines:
+            e.stop(timeout=1)
+        net.close()
+
+
+@pytest.mark.simnet
+def test_cluster_scope_merge_federates_compile_and_critpath():
+    """Twin of ``test_cluster_scope_merge_federates_compile_and_critpath``
+    with its compile-watch half: per-library compile counts and build walls
+    sum across members (wall histograms vector-add), beside the critpath
+    totals.  All three simnet nodes share the process-wide watch and
+    monitor, so every per-node body reports the same numbers and the
+    rollup must read exactly 3x each.  The two compiles are a build of
+    ``fused_step`` (0.5 s) and its first load."""
+    net = SimNet()
+    t = [0.0]
+    watch = compilewatch.CompileWatch(warmup_s=1e9, clock=lambda: t[0])
+    rec = trace.TraceRecorder(ring=4096, clock=net.clock.now)
+    mon = critpath.CritPathMonitor()
+    engines, nodes = _ring3(net, _cluster_cfg())
+    a = nodes[0]
+    try:
+        with trace.installed(rec), compilewatch.installed(watch), critpath.installed(mon):
+            watch.on_build("fused_step", 0.5)
+            watch.on_load("fused_step", built=True)
+            watch.on_build("fused_step_clocks", 0.25)
+            rec.record("u1", "admission", "engine.launch", 0.0, t1=0.1)
+            rec.record(None, "chunk.sync", "fetch.status", 0.1, t1=0.4, uuids=["u1"])
+            rec.record("u1", "resolve", "engine.resolve", 0.4, t1=0.4)
+            mon.observe_job("u1", 0.4)
+
+            cm = a.cluster_metrics_view()
+            per_node = [n["metrics"] for n in cm["nodes"].values()]
+            assert len(per_node) == 3
+            for body in per_node:
+                prog = body["compile"]["programs"]["fused_step"]
+                assert prog["count"] == 2 and prog["builds"] == 1 and prog["loads"] == 1
+                assert body["critpath"]["jobs"] == 1
+            ru = cm["rollup"]
+            prog = ru["compile"]["programs"]["fused_step"]
+            assert prog["count"] == 6
+            assert prog["wall_ms_total"] == pytest.approx(3 * 500.0)
+            assert sum(prog["wall_ms"]["counts"]) == 3
+            assert ru["compile"]["programs"]["fused_step_clocks"]["count"] == 3
+            assert ru["compile"]["compiles_total"] == 9
+            cp = ru["critpath"]
+            assert cp["jobs"] == 3
+            assert cp["attribution_ms"]["sync"] == pytest.approx(900.0)
+            assert cp["shares_pct"]["sync"] == pytest.approx(75.0)
+            assert hist.hist_count(ru["hist"]["critpath_sync_ms"]) == 3
+            assert promck.check_text(prom.render(cm["rollup"])) == []
     finally:
         for n in nodes:
             n.kill()

@@ -36,10 +36,27 @@ def twin(case, *args):
 
 
 def test_lock_tables_equal_the_jax_manifest():
-    assert lock_manifest.LOCK_RANKS == manifest.LOCK_RANKS
-    assert lock_manifest.LOCK_EDGE_DECLARED == manifest.LOCK_EDGE_DECLARED
+    """Every lock both packages have keeps the JAX rank, and every JAX
+    declared edge is the port's.  The port's own locks (``PORT_ONLY_LOCKS``:
+    the kernel libraries' build lock and the virtual-device count, which
+    the JAX package does not have) rank in its gaps, so the two rank
+    tables are compared on the shared names and differ by exactly those."""
+    port_only = set(lock_manifest.PORT_ONLY_LOCKS)
+    assert set(lock_manifest.LOCK_RANKS) - set(manifest.LOCK_RANKS) == port_only
+    assert set(manifest.LOCK_RANKS) <= set(lock_manifest.LOCK_RANKS)
+    shared = {k: v for k, v in lock_manifest.LOCK_RANKS.items() if k not in port_only}
+    assert shared == manifest.LOCK_RANKS
+    # A port-only lock takes a rank of its own, never a shared one.
+    assert len(set(lock_manifest.LOCK_RANKS.values())) == len(lock_manifest.LOCK_RANKS)
+    # The declared edges likewise: the JAX ones, plus the port's own.
+    port_edges = set(lock_manifest.PORT_ONLY_EDGES)
+    assert set(lock_manifest.LOCK_EDGE_DECLARED) - set(manifest.LOCK_EDGE_DECLARED) == port_edges
+    assert {k: v for k, v in lock_manifest.LOCK_EDGE_DECLARED.items()
+            if k not in port_edges} == manifest.LOCK_EDGE_DECLARED
+    for held, taken in port_edges:
+        assert lock_manifest.LOCK_RANKS[held] < lock_manifest.LOCK_RANKS[taken]
     w = obs(PKGS[1], "lockdep").manifest_witness(strict=True)
-    assert w.ranks == manifest.LOCK_RANKS and w.declared == manifest.LOCK_EDGE_DECLARED
+    assert w.ranks == lock_manifest.LOCK_RANKS and w.declared == lock_manifest.LOCK_EDGE_DECLARED
 
 
 # -- critpath: decomposition and monitor lanes ------------------------------------

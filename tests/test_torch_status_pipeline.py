@@ -12,8 +12,9 @@ Twins of ``tests/test_status_pipeline.py``:
 * the fetch-count guard: the serving loops read the device only through
   ``serving.engine.host_fetch``: exactly one ``status`` fetch per
   consumed chunk on static and resident flights, one per megastep
-  flight, under each observability plane (untraced, traced, the lock
-  witness, the journal; the compile watch is ROADMAP A14).  The fused
+  flight, under each observability plane (untraced, traced, the compile
+  watch with the critical-path monitor, the lock witness, the journal).
+  The fused
   loop's own per-dispatch loop-condition reads (``_run_fused``) are not
   ``host_fetch`` calls: they are counted and pinned here too;
 * padded-bucket job dimensions and the one-chunk reaction lag.
@@ -202,8 +203,12 @@ def counted_fetches(monkeypatch):
     return calls
 
 
-@pytest.fixture(params=["untraced", "traced", "lockdep", "journaled"])
+@pytest.fixture(params=["untraced", "traced", "watched", "lockdep", "journaled"])
 def tracing(request, tmp_path):
+    """The fetch-count guards under each plane.  ``watched`` installs the
+    compile watch and the critical-path monitor beside the recorder: the
+    cost seams price each flight from its shape on the host, so the counts
+    must be identical (zero added syncs), and the seams must have run."""
     if request.param == "untraced":
         yield None
         return
@@ -224,6 +229,15 @@ def tracing(request, tmp_path):
     from distributed_sudoku_solver_tpu_torch.obs import trace
 
     rec = trace.TraceRecorder(ring=8192)
+    if request.param == "watched":
+        from distributed_sudoku_solver_tpu_torch.obs import compilewatch, critpath
+
+        watch = compilewatch.CompileWatch(warmup_s=3600.0, peak_gflops=1000.0)
+        with trace.installed(rec), compilewatch.installed(watch), \
+                critpath.installed(critpath.CritPathMonitor()):
+            yield rec
+        assert watch.cost_metrics()["programs"], "no flight priced its advance"
+        return
     with trace.installed(rec):
         yield rec
 
