@@ -13,18 +13,21 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py --mesh         # phases 1-3 and the mesh phase (20) only
     python3 chip_smoke.py --compile      # phases 1-3 and the compile-watch phase (21) only
     python3 chip_smoke.py --procmesh     # phases 1-3, the mesh (20) and the process mesh (22) only
+    python3 chip_smoke.py --probes       # phase 1, the probes' build and phases 15-16 only
 
 Phases, each of which must pass (nothing is caught and skipped).  The
-full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
-23, 24: phase 21 needs a process in which no kernel library is loaded yet.
+full run and ``--compile`` take them in the order 1, 3, 21, 2, 4, 15, 16,
+5-14, 17-20, 22, 23, 24: phase 21 needs a process in which no kernel
+library is loaded yet, and the probes' device times need a profiler whose
+windows have not begun to drop kernel events.
 
 1. print the card's name, the device count and ``nvidia-smi``'s name and
    power limit;
 2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
    (one ``nvcc`` per library, started together: K1, K2, K3, the two probe
-   kernels P16 and PCV, and K2's and K3's counter builds; in the full run
-   and under ``--compile`` phase 21 has built them: its nodes K1's and
-   K2's libraries at first use, the smoke the other five) and print, per
+   kernels P16 and PCV, and the counter builds of K2, K3 and P16; in the
+   full run and under ``--compile`` phase 21 has built them: its nodes K1's and
+   K2's libraries at first use, the smoke the other six) and print, per
    kernel instantiation (K1 and K2 are templates on the box shape, K3 on
    the instance's row and covered words, P16 on the mask bits, PCV on the
    row words), ptxas's registers, spills and stack frame and the warps an
@@ -96,15 +99,25 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
    probe's own run, ``probes.uint16.run_probe`` (16 chained dispatches per
    width, best of 3 interleaved), with its launches counted from zero:
    ``uint32_fixpoints_per_s``, ``uint16_fixpoints_per_s``,
-   ``speedup_uint16``, ``bit_equal_low16``; each width's device time (the
-   profiler, and CUDA events around 20 launches back to back), plain time
-   and bound;
+   ``speedup_uint16``, ``bit_equal_low16``; the input's per-warp
+   divergence (the warp's largest sweep count over the mean, at 32 and 64
+   boards a warp) beside the kernel queue's model of it; the counter
+   build's warp-iterations, board-sweeps (equal to what the boards need)
+   and cycle shares, with the divergence they measure; the kernel's SASS
+   instruction counts per width (``cuobjdump``); each width's device time
+   (the profiler, and CUDA events around 20 launches back to back), plain
+   time and bound;
 16. PCV, the cover-primitive probe's kernel, against its plain version on
    the probe's seed-0 inputs at 3, 0, 1 and 7 steps; then the probe's own
    run, ``probes.cover_kernel.run_probe`` (which fails unless the output
-   words reproduce the pinned checksum 653,337,268); device time, plain
-   time and bound; and the device time of an empty launch (a one-word
-   fill), the floor under PCV's bound;
+   words reproduce the pinned checksum 653,337,268); device time with the
+   L2 cache warm and flushed before each launch, plain time and bound; and
+   the device time of an empty launch (a one-word fill), the floor under
+   PCV's bound, read the same two ways.  ``--probes`` runs phases 1, 15
+   and 16 alone after building just the two probe libraries and P16's
+   counter build; like ``--times`` it measures the checkout that holds
+   the script, so a copy in a parent's ``git archive`` times the parent's
+   kernels (parent, change, change, parent in one call);
 17. the serving stack over HTTP, at the CLI's default 9x9 deployment
    (``max_batch=256``, ``chunk_steps=64``, S=64, basic rules, minrem,
    ``ResidentConfig()``, ``MegastepConfig()``), ``host_fetch`` counted by
@@ -222,7 +235,7 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
    (composite, K1) does the same for K1's library with its first static
    request; ``/metrics`` ``compile`` must then show exactly those two
    libraries, each built once and loaded once, with the nvcc seconds.
-   The smoke then builds the five libraries no node has used (one nvcc
+   The smoke then builds the six libraries no node has used (one nvcc
    each, all at once, in a process of its own, so no watch hears of it)
    beside phase 17's routes: 512 corpus boards and HARD_9 resident,
    HARD_9 ``?latency=1``, a ``count_all``, ``/solve_batch`` of 1,024, and
@@ -326,6 +339,12 @@ KERNELS = {
     "P16": ("P16 fixpoint_probe", "probe_uint16.cu", "benchmarks/probe_uint16.py:94"),
     "PCV": ("PCV cover_probe", "probe_cover.cu", "benchmarks/probe_cover_kernel.py:176"),
 }
+
+# The counter builds (-DDSST_STAGE_CLOCKS): K2's and K3's stage breakdowns,
+# P16's queue counts.
+COUNTER_TARGETS = (("fused_step", "clocks"), ("cover", "clocks"), ("probe_uint16", "clocks"))
+# What --probes builds: the two probe kernels and P16's counter build.
+PROBE_TARGETS = (("probe_uint16", ""), ("probe_cover", ""), ("probe_uint16", "clocks"))
 
 # Enumeration counts the cover phases must reproduce exactly (OEIS A000170
 # for n-queens 14; 2,339 tilings x 4 symmetries for pentomino 6x10).
@@ -466,28 +485,64 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def device_ms(fn, reps: int, setup, match: str) -> float:
-    """Mean device time per call of the kernels whose name contains
-    ``match``, over ``reps`` calls of ``fn(setup())`` under torch.profiler
-    after one warm-up; ``setup`` runs before the profiled region (profiled
-    again, up to three windows, if one records no event of the kernel).
+def _matcher(match):
+    """A kernel-name predicate: a callable as it is, a string as a substring."""
+    return match if callable(match) else (lambda key: match in key)
+
+
+def window_ms(averages, match, want: int):
+    """Mean device ms per kernel event of one profiled window: the device
+    time of the events whose name ``match`` accepts (events with device
+    time only, so runtime calls never count) over their number; None when
+    that number is not ``want`` (a window that dropped or gained events)."""
+    hit = _matcher(match)
+    events = [e for e in averages if hit(e.key) and e.self_device_time_total > 0]
+    count = sum(e.count for e in events)
+    if count != want:
+        return None, count
+    return sum(e.self_device_time_total for e in events) / count / 1e3, count
+
+
+def device_ms(fn, reps: int, setup, match) -> float:
+    """Mean device time per kernel event of the kernels whose name contains
+    ``match`` (or that the callable ``match`` accepts), over ``reps`` calls
+    of ``fn(setup())`` under torch.profiler after one warm-up; ``setup``
+    runs before the profiled region.  Each call launches one such kernel.
+    The time is divided by the events the window recorded, not by
+    ``reps``: a window now and then drops events (for some kernels in every
+    window), and dividing by ``reps`` then read low.  A window with
+    exactly ``reps`` events is taken at once (up to three windows);
+    otherwise the one with the most, and the shortfall is printed (with
+    none in any window, CUDA events around the calls, printed as such).
     For a kernel shorter than its wrapper's host work, where CUDA events
     around the wrapper would time the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(setup())
-    for _ in range(3):  # a profiled window now and then records no kernel event
+    best = (None, 0)
+    for _ in range(3):
         args = [setup() for _ in range(reps)]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for a in args:
                 fn(a)
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
-        if us > 0:
-            return us / reps / 1e3
-    raise AssertionError(f"the profiler saw no device time of {match!r} in three windows")
+        ms, count = window_ms(prof.key_averages(), match, reps)
+        if count == reps:
+            return ms
+        if count > best[1]:
+            best = (window_ms(prof.key_averages(), match, count)[0], count)
+    if best[0] is None:
+        # A profiler that records nothing is a fault of the profiler, not of
+        # the kernel: CUDA events around the calls read an upper bound.
+        ms = event_ms(fn, reps, setup)
+        log(f"    (the profiler recorded no event of {match!r} in three windows; CUDA events "
+            f"around the calls instead, wrapper time included: {ms:.4f} ms)")
+        return ms
+    log(f"    (the profiler recorded {best[1]} of {reps} events of {match!r} in the best of "
+        f"three windows; time per recorded event)")
+    return best[0]
 
 
 def max_abs_err(a, b) -> int:
@@ -523,33 +578,39 @@ def phase_device() -> dict:
     return {"kind": name, "count": count, "smi": smi[0]}
 
 
-def phase_build() -> float:
-    """Build every library (one nvcc each, all at once) and print ptxas's
-    registers, spills and stack frame per kernel instantiation, with the
-    warps an SM holds at that register count (4-warp blocks for K1 and K2,
-    8 for K3; 64 warps at most).  No instantiation may spill.  The native
-    oracle (``g++``) builds beside them, on a thread of its own."""
+def phase_build(targets=None, names=None) -> float:
+    """Build the libraries (one nvcc each, all at once; by default every
+    target and the counter builds, with the native oracle (``g++``) beside
+    them on a thread of its own) and print ptxas's registers, spills and
+    stack frame per kernel instantiation of ``names`` (default: every
+    source), with the warps an SM holds at that register count (4-warp
+    blocks for K1, K2 and the probes, 8 for K3; 64 warps at most).  No
+    instantiation may spill."""
     from distributed_sudoku_solver_tpu_torch import native
     from distributed_sudoku_solver_tpu_torch.ops import cuda_build
 
+    native_oracle = targets is None
     t0 = time.perf_counter()
     gxx = threading.Thread(target=native.available, name="native-build")
-    gxx.start()
-    seconds = cuda_build.build(cuda_build.TARGETS + (("fused_step", "clocks"),
-                                                      ("cover", "clocks")))
-    gxx.join()
+    if native_oracle:
+        gxx.start()
+    seconds = cuda_build.build(cuda_build.TARGETS + COUNTER_TARGETS if native_oracle
+                               else targets)
+    if native_oracle:
+        gxx.join()
     build_s = time.perf_counter() - t0
-    if not native.available():
+    if native_oracle and not native.available():
         raise AssertionError("the native oracle did not build (g++)")
     if seconds:
-        seconds["native csp (g++)"] = native.build_seconds or 0.0
+        if native_oracle:
+            seconds["native csp (g++)"] = native.build_seconds or 0.0
         log(f"[2] build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
             f"total {build_s:.2f} s")
     else:
         log("[2] build: every library was built already (phase 21: the nodes' first "
             "requests and the smoke's build beside them)")
     spills = []
-    for name in cuda_build.SOURCES:
+    for name in cuda_build.SOURCES if names is None else names:
         block = 256 if name == "cover" else 128  # threads per block
         for row in cuda_build.ptxas_kernels(cuda_build.ptxas_report(name)):
             geo = "" if row["geometry"] is None else f"<{', '.join(map(str, row['geometry']))}>"
@@ -563,6 +624,48 @@ def phase_build() -> float:
     if spills:
         raise AssertionError(f"kernel instantiations spill: {spills}")
     return build_s
+
+
+def sass_counts(lib_path) -> dict:
+    """Per kernel function of a built library (``cuobjdump -sass``): its
+    SASS instruction count, the count inside its largest loop with no block
+    barrier in it (the span of that backward branch: P16's sweep loop, its
+    refills included) and the instructions there by opcode.
+    Empty where the toolkit has no cuobjdump."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    funcs, fn = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            funcs[fn] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if ins and fn is not None:
+            funcs[fn].append((int(ins.group(1), 16), ins.group(2).strip()))
+    out = {}
+    for fn, body in funcs.items():
+        barriers = [addr for addr, ins in body if ins.split()[0].startswith("BAR")]
+        loop = (0, -1)
+        for addr, ins in body:
+            bra = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+            target = int(bra.group(1), 16) if bra else addr
+            if (target < addr and addr - target > loop[1] - loop[0]
+                    and not any(target <= b <= addr for b in barriers)):
+                loop = (target, addr)
+        inside = [ins for addr, ins in body if loop[0] <= addr <= loop[1]]
+        ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0]
+                                  for i in inside)
+        out[fn] = {"total": len(body), "loop": len(inside), "loop_ops": dict(ops.most_common(12))}
+    return out
 
 
 def make_corpus(geom, count: int, seed: int, n_clues=None, hard=()):
@@ -1516,12 +1619,61 @@ def phase_snapshot(corpus, sizes, dev):
         f"snapshot in {resume_wall:.3f} s; bit-identical on every field")
 
 
+def warp_divergence(sweeps, boards_per_warp: int) -> float:
+    """Mean over warps of the warp's largest sweep count, over the mean
+    count: what a warp that loops a fixed group of consecutive boards (32
+    at 32 bits, 64 at 16: two a lane) sweeps per sweep its boards need."""
+    import torch
+
+    s = sweeps.to(torch.float64).flatten()
+    pad = (-s.numel()) % boards_per_warp
+    groups = torch.cat([s, s.new_zeros(pad)]).reshape(-1, boards_per_warp)
+    return float(groups.max(1).values.mean() / s.mean())
+
+
+def queue_model(sweeps, tile: int, threads: int = 128, per_lane: int = 1) -> dict:
+    """P16's queue as a model: each tile of ``tile`` consecutive boards goes
+    to one block of ``threads`` lanes with ``per_lane`` board slots each (2
+    at 16 bits); slot s of lane l starts with board ``s * threads + l``, and
+    a slot that finishes a board takes the tile's next one.  Returns the
+    most sweeps a warp runs on one tile (the slowest block's time, in
+    sweeps) and the warp-iterations times the warp's slots over the boards'
+    sweeps (the divergence the queue leaves)."""
+    import heapq
+
+    import numpy as np
+
+    s = np.asarray(sweeps, dtype=np.int64).ravel()
+    slots = threads * per_lane
+    warp_of = (np.arange(slots) % threads) // 32
+    worst, warp_iters = 0, 0
+    for t0 in range(0, s.size, tile):
+        heap = [(0, i) for i in range(slots)]
+        finish = np.zeros(slots, dtype=np.int64)
+        for need in s[t0:t0 + tile]:
+            at, i = heapq.heappop(heap)
+            finish[i] = at + need
+            heapq.heappush(heap, (int(finish[i]), i))
+        per_warp = np.zeros(threads // 32, dtype=np.int64)
+        np.maximum.at(per_warp, warp_of, finish)
+        worst = max(worst, int(per_warp.max()))
+        warp_iters += int(per_warp.sum())
+    return {"max_warp_sweeps": worst,
+            "divergence": warp_iters * 32 * per_lane / float(s.sum())}
+
+
 def phase_p16(sizes, dev):
     """P16 against its plain version, then the uint16 probe's own run (its
-    launches counted from zero) and each mask width's device time."""
+    launches counted from zero) and each mask width's device time; beside
+    them the input's per-warp divergence, the queue's model of it, the
+    counter build's counts (where the checkout has one) and the kernel's
+    SASS.  It calls only what every slice of the port provides (or checks
+    for the rest), so a copy of this script in an older checkout measures
+    that checkout's kernel (``--probes``)."""
     import torch
 
     from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_build
     from distributed_sudoku_solver_tpu_torch.probes import uint16 as p16
 
     batch = sizes["probe_boards"]
@@ -1549,10 +1701,44 @@ def phase_p16(sizes, dev):
         raise AssertionError("the uint16 fixpoint differs from the uint32 one's low 16 bits")
     log(json.dumps(out))
 
+    # The input's divergence: each board's own sweep count (probe_sweeps),
+    # against the warp's largest at 32 and 64 boards a warp; the queue's
+    # model at the kernel's tile (about T / SMs boards, a multiple of 8).
+    _, sweeps = p16.probe_sweeps(cand32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = -(-batch // sms)  # the kernel's tile: T / SMs boards, rounded up to 8
+    tile = -(-tile // 8) * 8
+    model = {f"{w} bits": queue_model(sweeps.cpu().numpy(), tile, 128, per_lane)
+             for w, per_lane in ((32, 1), (16, 2))}
+    log(f"[15] P16 input: {int(sweeps.sum())} board-sweeps, mean {float(sweeps.float().mean()):.4f}"
+        f", {int(sweeps.min())}-{int(sweeps.max())} a board; per-warp divergence (warp-max over "
+        f"mean): 32 boards a warp {warp_divergence(sweeps, 32):.4f}, 64 boards a warp "
+        f"{warp_divergence(sweeps, 64):.4f}; queue model at tile {tile}, 128 lanes: "
+        f"{json.dumps(model)}")
+    if hasattr(p16, "fixpoint_probe_counts"):
+        for name, dtype in widths.items():
+            counts = p16.fixpoint_probe_counts(cand32.to(dtype))
+            slots = 64 if name == "uint16" else 32
+            if counts["board_sweeps"] != int(sweeps.sum()):
+                raise AssertionError(f"P16 {name} counter build swept {counts['board_sweeps']} "
+                                     f"board-sweeps, the boards need {int(sweeps.sum())}")
+            div = counts["warp_iterations"] * slots / counts["board_sweeps"]
+            log(f"[15] P16 {name} counter build: {json.dumps(counts)}; measured divergence "
+                f"(warp-iterations x {slots} slots / board-sweeps) {div:.4f}; chunk waits "
+                f"{counts['wait_cycles'] / max(counts['warp_loop_cycles'], 1):.4f} and write-back "
+                f"{counts['block_write_cycles'] / max(counts['block_cycles'], 1):.4f} of the cycles")
+    sass = sass_counts(cuda_build.lib_path("probe_uint16"))
+    for fn, row in sass.items():
+        bits = "16" if "Li16E" in fn else "32" if "Li32E" in fn else "?"
+        log(f"[15] P16 SASS probe_fixpoint_kernel<{bits}>: {row['total']} instructions, "
+            f"{row['loop']} in its sweep loop (the largest without a block barrier); by opcode: "
+            f"{json.dumps(row['loop_ops'])}")
+    if not sass:
+        log("[15] P16 SASS: cuobjdump not found (not measured)")
+
     # Bound: each board read and written once; the sweeps each board's own
     # loop runs, at the operations of a basic-rules sweep; 16-bit lanes
     # counted two to an int32 operation (the kernel's SWAR pairing).
-    _, sweeps = p16.probe_sweeps(cand32)
     rows = {}
     for name, dtype in widths.items():
         x = cand32.to(dtype)
@@ -1600,9 +1786,12 @@ def pcv_ops(inputs, steps: int) -> float:
 
 def phase_pcv(sizes, dev):
     """PCV against its plain version, then the cover probe's own run (its
-    launches counted from zero; it checks the pinned checksum)."""
+    launches counted from zero; it checks the pinned checksum); then its
+    device time and an empty launch's, each with the L2 cache warm and
+    flushed before every launch."""
     import torch
 
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_build
     from distributed_sudoku_solver_tpu_torch.probes import cover_kernel as pcv
 
     inputs = [x.to(dev) for x in pcv.probe_inputs()]
@@ -1623,22 +1812,45 @@ def phase_pcv(sizes, dev):
     if launches <= 0:
         raise AssertionError("the cover probe's run launched PCV no time")
     log(json.dumps(out))
-    ms = device_ms(lambda a: pcv.cover_probe_cuda(*a), sizes["reps"], lambda: inputs,
-                   "probe_cover_kernel")
-    plain_ms = event_ms(lambda _: pcv.cover_probe_plain(*inputs), sizes["reps"])
+
+    # The kernel alone, through its C entry point: the wrapper's 0/1 check
+    # of the incidence runs kernels that would bring it back into L2.  A
+    # flush rewrites 128 MB (the L2 holds 50 MB) with a bitwise-not kernel,
+    # which the readings leave out by name.
+    fn = pcv._lib()
     outs = pcv.cover_probe_cuda(*inputs)
+    w, c, t, s = inputs[1].shape[0], inputs[0].shape[1], inputs[1].shape[1], inputs[3].shape[0]
+
+    def kernel(_=None):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_build.check(fn(*(x.data_ptr() for x in (*inputs, *outs)), w, c, t, s, pcv.STEPS,
+                            stream), "dsst_probe_cover")
+
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    readings = {}
+    for flushed in (False, True):
+        pre = flush_buf.bitwise_not_ if flushed else (lambda: None)
+        readings[flushed] = (
+            device_ms(lambda _: (pre(), kernel()), sizes["reps"], lambda: None,
+                      "probe_cover_kernel"),
+            device_ms(lambda _: (pre(), one.fill_(1)), sizes["reps"], lambda: None,
+                      lambda key: "fill" in key.lower()))
+    ms = readings[False][0]
+    for fn_name, row in sass_counts(cuda_build.lib_path("probe_cover")).items():
+        if f"Li{w}E" in fn_name:
+            log(f"[16] PCV SASS probe_cover_kernel<{w}>: {row['total']} instructions")
+    plain_ms = event_ms(lambda _: pcv.cover_probe_plain(*inputs), sizes["reps"])
     n_bytes = sum(x.numel() * x.element_size() for x in (*inputs, *outs))
     bms, by = bound_ms(n_bytes, pcv_ops(inputs, pcv.STEPS))
-    log(f"[16] PCV timing: {ms:.4f} ms (kernel, profiler), plain {plain_ms:.4f} ms, bound "
-        f"{bms:.6f} ms ({by})")
+    log(f"[16] PCV timing: {ms:.4f} ms with L2 warm, {readings[True][0]:.4f} ms with L2 flushed "
+        f"before each launch (kernel, profiler), plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+        f"({by})")
     # PCV's bound lies below any kernel's device time: the attainable floor
     # is an empty launch, here a one-word fill of 1 (a kernel; a fill of 0
-    # may become a memset).  The profiled window holds only these launches,
-    # so every device event in it counts ("" matches every name).
-    empty = device_ms(lambda t: t.fill_(1), sizes["reps"],
-                      lambda: torch.empty(1, dtype=torch.int32, device=dev), "")
-    log(f"[16] an empty launch (a one-word fill): {empty:.4f} ms device time (profiler), "
-        f"PCV's attainable floor")
+    # may become a memset), read the same two ways.
+    log(f"[16] an empty launch (a one-word fill): {readings[False][1]:.4f} ms with L2 warm, "
+        f"{readings[True][1]:.4f} ms flushed (device time, profiler), PCV's attainable floor")
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by)
 
@@ -3539,7 +3751,7 @@ NODE_TARGETS = (("fused_step", ""), ("propagate", ""))
 SMOKE_BUILD = (
     "import json\n"
     "from distributed_sudoku_solver_tpu_torch.ops import cuda_build as b\n"
-    "print(json.dumps(b.build(b.TARGETS + (('fused_step', 'clocks'), ('cover', 'clocks')))))\n")
+    f"print(json.dumps(b.build(b.TARGETS + {COUNTER_TARGETS!r})))\n")
 
 
 def _smoke_build_seconds(proc) -> dict:
@@ -3960,6 +4172,10 @@ def main(argv=None) -> int:
     ap.add_argument("--procmesh", action="store_true",
                     help="phases 1-3, the mesh phase (20) and the process-mesh phase (22) only "
                          "(no result line)")
+    ap.add_argument("--probes", action="store_true",
+                    help="phase 1, the two probe libraries' build and phases 15 and 16 only (no "
+                         "result line); runs against the checkout that holds this copy of the "
+                         "script")
     ap.add_argument("--procmesh-worker", nargs=4, metavar=("RANK", "WORLD", "WORKDIR", "DEVICE"),
                     help="one worker process of phase 22 (the phase starts these itself)")
     args = ap.parse_args(argv)
@@ -3976,6 +4192,13 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     device = phase_device()
+    if args.probes:
+        phase_build(PROBE_TARGETS, ("probe_uint16", "probe_cover"))
+        p16 = phase_p16(SIZES, dev)
+        pcv = phase_pcv(SIZES, dev)
+        log(json.dumps({"probes": {**{f"P16 {w}": row for w, row in p16.items()}, "PCV": pcv},
+                        "card": device["smi"]}))
+        return 0
     if args.times:
         phase_times(phase_corpus(dict(SIZES, corpus=SIZES["k2_lanes"])), SIZES, dev)
         return 0
@@ -4019,6 +4242,10 @@ def main(argv=None) -> int:
     if args.compile:
         return 0
     k1 = phase_k1(corpus, SIZES, dev)
+    # The probes early, while the process's profiler is fresh: in a full
+    # run its later windows drop kernel events, more of them the later.
+    p16 = phase_p16(SIZES, dev)
+    pcv = phase_pcv(SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
     phase_breakdown(corpus, SIZES, dev)
     main_launches = phase_main(corpus, dev)
@@ -4036,8 +4263,6 @@ def main(argv=None) -> int:
     flight_launches, _ = phase_flight(corpus, minrem_nodes, SIZES, dev)
     head_launches["head:cw-slack"] += flight_launches
     phase_snapshot(corpus, SIZES, dev)
-    p16 = phase_p16(SIZES, dev)
-    pcv = phase_pcv(SIZES, dev)
     serving = phase_serving(corpus, minrem_nodes, device, SIZES, dev)
     frontdoor = phase_frontdoor(corpus, device, SIZES, dev)
     cluster = phase_cluster(corpus, device, SIZES, dev)
@@ -4046,7 +4271,7 @@ def main(argv=None) -> int:
     log(f"[23] elapsed {time.perf_counter() - t_start:.1f} s; node F answered its first request "
         f"{serving_s['node_f_first_answer_s']:.1f} s after its start (K2's library built and "
         f"loaded on that request), node C its first in {serving_s['node_c_first_request_s']:.1f} s "
-        f"(K1's); the smoke's build of the other five libraries beside phase 21 took "
+        f"(K1's); the smoke's build of the other six libraries beside phase 21 took "
         f"{max(smoke_build_s.values(), default=0.0):.1f} s")
     kernels = [
         kernel_row("K1", launches=comp_launches["K1"] + serving["K1"] + mesh["K1"]

@@ -14,7 +14,14 @@ raises.  ``fixpoint_probe_cuda.launches`` counts kernel launches.
 
 Each board is iterated to its own fixpoint, capped at ``max_sweeps``.  The
 TPU kernel looped per tile until no board of the tile changed; a sweep of
-a board at its fixpoint changes nothing, so the output is the same.
+a board at its fixpoint changes nothing, so the output is the same.  The
+kernel keeps each lane busy with a queue of boards in shared memory, so a
+warp stops sweeping boards that have converged.  At 16 bits the kernel
+packs two boards into a 32-bit word and sweeps both at once:
+:func:`swar_dec`, :func:`swar_nonzero` and :func:`swar_multi` model its
+per-half identities in numpy (the CPU tests check them on every 16-bit
+value).  :func:`fixpoint_probe_counts` runs the kernel's counter build
+(``probe_uint16_clocks``) and returns its counts.
 
 Run: ``python -m distributed_sudoku_solver_tpu_torch.probes.uint16
 [--device cpu] [--batch 65536] [--iters 16]``; prints the probe's JSON line.
@@ -108,11 +115,93 @@ def fixpoint_probe_plain(cand_t: torch.Tensor, max_sweeps: int = 64) -> torch.Te
     return probe_sweeps(cand_t, max_sweeps)[0]
 
 
+# -- the kernel's 16-bit lane algebra, as a numpy model ------------------------
+#
+# A uint32 word holds two 16-bit masks; each identity below works on both
+# halves at once with plain 32-bit operations and never carries or borrows
+# from one half into the other, for any 16-bit values (csrc/probe_uint16.cu,
+# ``Lanes<16>``, computes exactly these).
+
+SWAR_H = np.uint32(0x80008000)  # bit 15 of each half
+SWAR_L = np.uint32(0x7FFF7FFF)  # bits 0-14 of each half
+
+
+def swar_dec(x: np.ndarray) -> np.ndarray:
+    """Each half minus 1, mod 2**16: ``((x | H) - 0x00010001) ^ (~x & H)``."""
+    x = np.asarray(x, dtype=np.uint32)
+    return ((x | SWAR_H) - np.uint32(0x00010001)) ^ (~x & SWAR_H)
+
+
+def swar_nonzero_flags(x: np.ndarray) -> np.ndarray:
+    """Bit 15 of each half set where the half is not 0:
+    ``(((x & L) + L) | x) & H``."""
+    x = np.asarray(x, dtype=np.uint32)
+    return (((x & SWAR_L) + SWAR_L) | x) & SWAR_H
+
+
+def swar_widen(flags: np.ndarray) -> np.ndarray:
+    """PRMT with selector 0xBB99: the sign of byte 1 replicated over bytes
+    0-1, that of byte 3 over bytes 2-3 (bit 15 of each half spread over
+    the half)."""
+    f = np.asarray(flags, dtype=np.uint32)
+    lo = np.where(f & np.uint32(0x8000), np.uint32(0x0000FFFF), np.uint32(0))
+    hi = np.where(f & np.uint32(0x80000000), np.uint32(0xFFFF0000), np.uint32(0))
+    return (lo | hi).astype(np.uint32)
+
+
+def swar_nonzero(x: np.ndarray) -> np.ndarray:
+    """All ones in each half that is not 0."""
+    return swar_widen(swar_nonzero_flags(x))
+
+
+def swar_multi(x: np.ndarray) -> np.ndarray:
+    """All ones in each half that holds two bits or more:
+    ``x & dec(x)`` is not 0 there."""
+    x = np.asarray(x, dtype=np.uint32)
+    return swar_widen(swar_nonzero_flags(x & swar_dec(x)))
+
+
+def swar_single(x: np.ndarray) -> np.ndarray:
+    """Each half where it holds exactly one bit, else 0 (the naked step's
+    decided values): ``x & ~multi(x)``."""
+    x = np.asarray(x, dtype=np.uint32)
+    return x & ~swar_multi(x)
+
+
 def _lib():
     fn = cuda_build.load("probe_uint16").dsst_probe_fixpoint
     fn.argtypes = [_P, _P, _I, _I, _I, _P]
     fn.restype = _I
     return fn
+
+
+COUNTS = ("warp_iterations", "board_sweeps", "wait_cycles", "warp_loop_cycles",
+          "block_write_cycles", "block_cycles")
+
+
+def fixpoint_probe_counts(cand_t: torch.Tensor, max_sweeps: int = 64) -> dict:
+    """One launch of the kernel's counter build on a CUDA tensor (not
+    counted in ``fixpoint_probe_cuda.launches``: the probe's path runs the
+    plain build), synchronised; returns its counts (:data:`COUNTS`)."""
+    bits = _check(cand_t)
+    if cand_t.device.type != "cuda":
+        raise ValueError(f"fixpoint_probe_counts needs a CUDA tensor, got {cand_t.device}")
+    lib = cuda_build.load("probe_uint16", "clocks")
+    fn, take = lib.dsst_probe_fixpoint, lib.dsst_probe_counts_take
+    fn.argtypes = [_P, _P, _I, _I, _I, _P]
+    fn.restype = _I
+    take.argtypes = [_P]
+    take.restype = _I
+    counts = np.zeros(len(COUNTS), dtype=np.uint64)
+    torch.cuda.synchronize(cand_t.device)
+    cuda_build.check(take(counts.ctypes.data), "dsst_probe_counts_take")  # zero them
+    out = torch.empty_like(cand_t)
+    stream = torch.cuda.current_stream(cand_t.device).cuda_stream
+    err = fn(cand_t.data_ptr(), out.data_ptr(), cand_t.shape[2], max_sweeps, bits, stream)
+    cuda_build.check(err, "dsst_probe_fixpoint (counter build)")
+    torch.cuda.synchronize(cand_t.device)
+    cuda_build.check(take(counts.ctypes.data), "dsst_probe_counts_take")
+    return {name: int(c) for name, c in zip(COUNTS, counts)}
 
 
 def fixpoint_probe_cuda(cand_t: torch.Tensor, max_sweeps: int = 64) -> torch.Tensor:

@@ -8,7 +8,18 @@
 * PCV: ``benchmarks/probe_cover_kernel.run(interpret=True)`` against
   :func:`cover_probe_plain` on the same seed-0 inputs: all four outputs
   exactly equal, and the pinned checksum.
-* Card tests (``-m cuda``): each kernel against its plain version, exact.
+* P16's 16-bit lane algebra: the numpy model of the kernel's carry-free
+  per-half identities (``uint16.swar_*``) against per-half arithmetic on
+  every 16-bit value, with the other half at 0, 1, 0x8000 and 0xFFFF; and
+  a numpy sweep built on the kernel's lane algebra (its naked step ``c &
+  (one(c) | ~seen)`` at 32 bits, ``c & ~(seen & multi(c))`` on two boards a
+  word at 16) against the plain sweep.  Exact.
+* ``chip_smoke.window_ms`` (how the smoke reads a profiled window): only
+  windows with exactly the expected number of kernel events count.
+* Card tests (``-m cuda``): each kernel against its plain version, exact:
+  P16 at the queue's edges (one board, the tiles' ragged ends, one tile a
+  block and more, odd T at 16 bits, a solved board, full-width random
+  masks, caps 64 / 1 / 2), PCV after an L2 flush too.
 
 The JAX probes are imported inside the tests that use them: the card
 machine runs the ``cuda`` tests without JAX.
@@ -18,6 +29,7 @@ import functools
 import importlib
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,6 +38,14 @@ import torch
 from distributed_sudoku_solver_tpu_torch.probes import cover_kernel, uint16
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _jax_probe(name):
@@ -202,6 +222,177 @@ def test_probe_wrappers_check_their_inputs():
         cover_kernel.cover_probe(inc.double(), packed, meta, stack)
 
 
+# -- P16's 16-bit lane algebra (the kernel's Lanes<16>), as a numpy model --------
+
+
+def _popcount16(h: np.ndarray) -> np.ndarray:
+    return np.unpackbits(h.astype(">u2").view(np.uint8).reshape(-1, 2), axis=1).sum(1)
+
+
+@pytest.mark.parametrize("other", [0, 1, 0x8000, 0xFFFF])
+@pytest.mark.parametrize("half", [0, 1])
+def test_swar16_identities_on_every_16_bit_value(half, other):
+    """Every 16-bit value in one half, ``other`` in the other: each
+    identity per half equals per-half arithmetic, and leaves the other
+    half as the same identity of ``other`` (nothing crosses the halves)."""
+    h = np.arange(1 << 16, dtype=np.uint32)
+    x = (h << 16 | np.uint32(other)) if half else (np.uint32(other) << 16 | h)
+
+    def halves(y):
+        y = np.asarray(y, dtype=np.uint32)
+        return ((y >> 16) if half else (y & 0xFFFF)), ((y & 0xFFFF) if half else (y >> 16))
+
+    pop = _popcount16(h)
+    o = np.array([other], dtype=np.uint32)
+    opop = int(_popcount16(o)[0])
+    full = np.uint32(0xFFFF)
+    want = {
+        "dec": ((h - 1) & 0xFFFF, (other - 1) & 0xFFFF),
+        "nonzero": (np.where(h != 0, full, 0), 0xFFFF if other else 0),
+        "multi": (np.where(pop >= 2, full, 0), 0xFFFF if opop >= 2 else 0),
+        "single": (np.where(pop == 1, h, 0), other if opop == 1 else 0),
+    }
+    got = {"dec": uint16.swar_dec(x), "nonzero": uint16.swar_nonzero(x),
+           "multi": uint16.swar_multi(x), "single": uint16.swar_single(x)}
+    for name, y in got.items():
+        mine, theirs = halves(y)
+        assert np.array_equal(mine, want[name][0]), name
+        assert np.all(theirs == want[name][1]), name
+    flags = uint16.swar_nonzero_flags(x)
+    assert not np.any(flags & ~np.uint32(0x80008000))
+
+
+def _one32(x):
+    pop = np.vectorize(lambda v: bin(int(v)).count("1"))(x)
+    return np.where(pop == 1, np.uint32(0xFFFFFFFF), np.uint32(0))
+
+
+def _nonzero32(x):
+    return np.where(x != 0, np.uint32(0xFFFFFFFF), np.uint32(0))
+
+
+# The kernel's lane algebra per width (csrc/probe_uint16.cu ``Lanes``):
+# (decided, naked, nonzero).
+_LANES = {
+    32: (lambda c: c & _one32(c), lambda c, seen: c & (_one32(c) | ~seen), _nonzero32),
+    16: (uint16.swar_single, lambda c, seen: c & ~(seen & uint16.swar_multi(c)),
+         uint16.swar_nonzero),
+}
+
+
+def _sweep_model(c: np.ndarray, bits: int) -> np.ndarray:
+    """The kernel's sweep on uint32 words ``[9, 9, P]`` (csrc/probe_uint16.cu
+    ``sweep``), with its lane algebra for ``bits``."""
+    decided, naked, nonzero = _LANES[bits]
+    d = decided(c)
+    boxes = lambda x: x.reshape(3, 3, 3, 3, -1).transpose(0, 2, 1, 3, 4).reshape(9, 9, -1)
+    unbox = boxes  # the box permutation is its own inverse
+    seen = (np.bitwise_or.reduce(d, axis=1)[:, None] | np.bitwise_or.reduce(d, axis=0)[None]
+            | unbox(np.repeat(np.bitwise_or.reduce(boxes(d), axis=1)[:, None], 9, axis=1)))
+    c = naked(c, seen)
+
+    def exactly_once(x, axis):  # values seen once along axis
+        once = np.zeros_like(np.take(x, 0, axis=axis))
+        twice = np.zeros_like(once)
+        for k in range(9):
+            v = np.take(x, k, axis=axis)
+            twice |= once & v
+            once |= v
+        return once & ~twice
+
+    hidden = (exactly_once(c, 1)[:, None] | exactly_once(c, 0)[None]
+              | unbox(np.repeat(exactly_once(boxes(c), 1)[:, None], 9, axis=1)))
+    forced = c & hidden
+    take = nonzero(forced)
+    return (forced & take) | (c & ~take)
+
+
+def _model_inputs(bits: int, seed: int = 11) -> np.ndarray:
+    """64 probe boards, 64 random 9-bit masks with empty cells, 64 random
+    full-width masks; boards-last uint ``[9, 9, 192]``."""
+    rng = np.random.default_rng(seed)
+    boards = _p16_boards()[..., :64].astype(np.uint64)
+    nine = rng.integers(0, 512, size=(9, 9, 64)).astype(np.uint64)
+    nine[rng.random(nine.shape) < 0.05] = 0
+    wide = rng.integers(0, 1 << bits, size=(9, 9, 64), dtype=np.uint64)
+    return np.concatenate([boards, nine, wide], axis=-1)
+
+
+@pytest.mark.parametrize("bits", [32, 16])
+def test_kernel_sweep_model_matches_plain_sweeps(bits):
+    """Three sweeps of the kernel's algebra (at 16 bits two boards a word,
+    board 2j in the low half) against three plain sweeps, board by board."""
+    cand = _model_inputs(bits)
+    signed = np.int32 if bits == 32 else np.int16
+    unsigned = np.uint32 if bits == 32 else np.uint16
+    want = torch.from_numpy(cand.astype(unsigned).view(signed)).permute(2, 0, 1)
+    for _ in range(3):
+        want = uint16._sweep_plain(want, bits)
+    want = want.permute(1, 2, 0).numpy().view(unsigned)
+    if bits == 32:
+        got = cand.astype(np.uint32)
+        for _ in range(3):
+            got = _sweep_model(got, 32)
+    else:
+        words = (cand[..., 0::2] | cand[..., 1::2] << 16).astype(np.uint32)
+        for _ in range(3):
+            words = _sweep_model(words, 16)
+        got = np.empty(cand.shape, dtype=np.uint32)
+        got[..., 0::2], got[..., 1::2] = words & 0xFFFF, words >> 16
+    assert np.array_equal(got.astype(unsigned), want)
+    assert not np.array_equal(want, cand.astype(unsigned))
+
+
+def test_profiler_window_counts_only_exact_windows():
+    """``chip_smoke.window_ms``: the device time of the matching kernel
+    events over their count (dividing by the launches read low when a
+    window dropped events), and no reading from a window with another
+    count than asked; runtime calls, which have no device time, never
+    count."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    ev = lambda key, count, us: SimpleNamespace(key=key, count=count, self_device_time_total=us)
+    window = [ev("void probe_fixpoint_kernel<32>(...)", 5, 500.0),
+              ev("cudaLaunchKernel", 5, 0.0), ev("void other_kernel()", 3, 90.0)]
+    assert chip_smoke.window_ms(window, "probe_fixpoint_kernel", 5) == (0.1, 5)
+    assert chip_smoke.window_ms(window[:1] + [ev("probe_fixpoint_kernel", 0, 0.0)],
+                                "probe_fixpoint_kernel", 5) == (0.1, 5)
+    dropped = [ev("void probe_fixpoint_kernel<32>(...)", 3, 300.0)]
+    assert chip_smoke.window_ms(dropped, "probe_fixpoint_kernel", 5) == (None, 3)
+    assert chip_smoke.window_ms(dropped, "probe_fixpoint_kernel", 3) == (0.1, 3)
+    keys = {"void other_kernel()"}
+    assert chip_smoke.window_ms(window, lambda k: k in keys, 3) == (0.03, 3)
+    assert chip_smoke.window_ms(window, "Launch", 5) == (None, 0)
+
+
+def test_queue_model_and_warp_divergence():
+    """The smoke's divergence readings on hand-made sweep counts: equal
+    counts diverge by 1; one long board in a warp of short ones costs the
+    warp its length; the queue spreads boards over a block's slots."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    flat = torch.full((128,), 4, dtype=torch.int32)
+    assert chip_smoke.warp_divergence(flat, 32) == 1.0
+    one_long = flat.clone()
+    one_long[0] = 36
+    assert chip_smoke.warp_divergence(one_long, 32) == pytest.approx(((36 + 3 * 4) / 4) / (544 / 128))
+    # 256 boards of 4 sweeps on 128 lanes: two boards a lane, 8 sweeps a warp.
+    assert chip_smoke.queue_model(np.full(256, 4), 256, 128, 1) == {
+        "max_warp_sweeps": 8, "divergence": 1.0}
+    # Two slots a lane: the same boards take one round of 4 sweeps.
+    assert chip_smoke.queue_model(np.full(256, 4), 256, 128, 2)["max_warp_sweeps"] == 4
+    # A 20-sweep board in the tile ends its warp last.
+    s = np.full(256, 4)
+    s[5] = 20
+    assert chip_smoke.queue_model(s, 256, 128, 1)["max_warp_sweeps"] == 20
+
+
 # -- card-only: each kernel against its plain version ---------------------------
 
 
@@ -212,20 +403,62 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The queue's edges.  The kernel's tile is about T / SMs boards, a multiple
+# of 8, at most what shared memory holds (mirrored from csrc/probe_uint16.cu
+# ``plan``; were they to drift apart, these would still be valid cases):
+# T = 8 SMs +- 1 end the last tile ragged or one board into it; T = SMs *
+# (the largest tile) + 1 gives one block a second tile; twice that less 1
+# gives every block two, the last ragged.  Odd T at 16 bits stages element
+# by element, every other T in 4-byte pieces.
+P16_EDGES = ["one", "tiles_of_8_less_1", "tiles_of_8", "tiles_of_8_plus_1",
+             "tiles_of_8_plus_2", "probe", "full_tiles_plus_1", "two_tiles_a_block_less_1"]
+
+
+def _p16_edge_boards(case: str, dtype, dev) -> torch.Tensor:
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    per_slot = 1 if dtype == torch.int32 else 2  # boards a 84-word slot of the tile
+    largest = (optin - 1024) // (84 * 4 + 1) // 32 * 32 * per_slot
+    t = {"one": 1, "tiles_of_8_less_1": 8 * sms - 1, "tiles_of_8": 8 * sms,
+         "tiles_of_8_plus_1": 8 * sms + 1, "tiles_of_8_plus_2": 8 * sms + 2, "probe": 65536,
+         "full_tiles_plus_1": sms * largest + 1,
+         "two_tiles_a_block_less_1": 2 * sms * largest - 1}[case]
+    bits = 32 if dtype == torch.int32 else 16
+    rng = np.random.default_rng(t)
+    x = _p16_boards()[..., np.arange(t) % 256].astype(np.uint64)
+    nine = rng.integers(0, 512, size=(9, 9, t), dtype=np.uint64)
+    nine[rng.random(nine.shape) < 0.03] = 0
+    x[..., 3::7] = nine[..., 3::7]  # contradictions and boards that run long
+    x[..., 5::11] = rng.integers(0, 1 << bits, size=(9, 9, t), dtype=np.uint64)[..., 5::11]
+    grid = (np.arange(9)[:, None] * 3 + np.arange(9)[:, None] // 3 + np.arange(9)) % 9
+    x[..., 0] = (1 << grid).astype(np.uint64)  # a solved board
+    unsigned, signed = (np.uint32, np.int32) if bits == 32 else (np.uint16, np.int16)
+    return torch.from_numpy(np.ascontiguousarray(x.astype(unsigned)).view(signed)).to(dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("boards", [4096, 4095, 1])
+@pytest.mark.parametrize("boards", P16_EDGES)
 @pytest.mark.parametrize("max_sweeps", [64, 1, 2])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
 def test_p16_kernel_matches_plain(cuda_device, dtype, max_sweeps, boards):
-    rng = np.random.default_rng(boards)
-    rand = rng.integers(0, 512, size=(9, 9, 257)).astype(np.int32)
-    rand[rng.random(rand.shape) < 0.03] = 0
-    x = torch.cat([uint16.probe_boards(boards), torch.from_numpy(rand)], -1)[..., :boards]
-    x = x.contiguous().to(dtype).to(cuda_device)
+    x = _p16_edge_boards(boards, dtype, cuda_device)
     before = uint16.fixpoint_probe_cuda.launches
     got = uint16.fixpoint_probe(x, max_sweeps)
     assert uint16.fixpoint_probe_cuda.launches == before + 1
-    assert torch.equal(got, uint16.fixpoint_probe_plain(x, max_sweeps))
+    want = uint16.fixpoint_probe_plain(x, max_sweeps)
+    assert torch.equal(got, want)
+    assert torch.equal(got[..., 0], x[..., 0])  # the solved board stays
+
+
+@pytest.mark.cuda
+def test_p16_kernel_low16_equals_16_bit_kernel(cuda_device):
+    """The probe's ``bit_equal_low16`` on the kernels: the 32-bit fixpoint's
+    low 16 bits equal the 16-bit fixpoint, on the probe's boards."""
+    x = uint16.probe_boards(4096).to(cuda_device)
+    got32 = uint16.fixpoint_probe_cuda(x)
+    got16 = uint16.fixpoint_probe_cuda(x.to(torch.int16))
+    assert torch.equal(got32.to(torch.int16), got16)
 
 
 @pytest.mark.cuda
@@ -240,6 +473,20 @@ def test_pcv_kernel_matches_plain(cuda_device, steps):
         assert torch.equal(g, w)
     if steps == 3:
         assert cover_kernel.checksum(got[1]) == cover_kernel.PINNED_CHECKSUM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1, 3, 7])
+def test_pcv_kernel_matches_plain_after_l2_flush(cuda_device, steps):
+    """The kernel with its inputs out of the L2 cache: 128 MB written over
+    the 50 MB cache just before the launch."""
+    inputs = [x.to(cuda_device) for x in cover_kernel.probe_inputs()]
+    want = cover_kernel.cover_probe_plain(*inputs, steps)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=cuda_device)
+    flush.bitwise_not_()
+    got = cover_kernel.cover_probe(*inputs, steps)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
