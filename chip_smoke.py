@@ -16,18 +16,16 @@ Run from the repository root, on a machine with one CUDA card and ``nvcc``:
     python3 chip_smoke.py --probes       # phase 1, the probes' build and phases 15-16 only
 
 Phases, each of which must pass (nothing is caught and skipped).  The
-full run and ``--compile`` take them in the order 1, 3, 21, 2, 4, 15, 16,
-5-14, 17-20, 22, 23, 24: phase 21 needs a process in which no kernel
-library is loaded yet, and the probes' device times need a profiler whose
-windows have not begun to drop kernel events.
+full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
+23, 24: phase 21 needs a process in which no kernel library is loaded yet.
 
 1. print the card's name, the device count and ``nvidia-smi``'s name and
    power limit;
 2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
    (one ``nvcc`` per library, started together: K1, K2, K3, the two probe
-   kernels P16 and PCV, and the counter builds of K2, K3 and P16; in the
-   full run and under ``--compile`` phase 21 has built them: its nodes K1's and
-   K2's libraries at first use, the smoke the other six) and print, per
+   kernels P16 and PCV, and K2's and K3's counter builds; in the full run
+   and under ``--compile`` phase 21 has built them: its nodes K1's and
+   K2's libraries at first use, the smoke the other five) and print, per
    kernel instantiation (K1 and K2 are templates on the box shape, K3 on
    the instance's row and covered words, P16 on the mask bits, PCV on the
    row words), ptxas's registers, spills and stack frame and the warps an
@@ -101,12 +99,9 @@ windows have not begun to drop kernel events.
    ``uint32_fixpoints_per_s``, ``uint16_fixpoints_per_s``,
    ``speedup_uint16``, ``bit_equal_low16``; the input's per-warp
    divergence (the warp's largest sweep count over the mean, at 32 and 64
-   boards a warp) beside the kernel queue's model of it; the counter
-   build's warp-iterations, board-sweeps (equal to what the boards need)
-   and cycle shares, with the divergence they measure; the kernel's SASS
-   instruction counts per width (``cuobjdump``); each width's device time
-   (the profiler, and CUDA events around 20 launches back to back), plain
-   time and bound;
+   boards a warp) beside the kernel queue's model of it; each width's
+   device time (the profiler, and CUDA events around 20 launches back to
+   back), plain time and bound;
 16. PCV, the cover-primitive probe's kernel, against its plain version on
    the probe's seed-0 inputs at 3, 0, 1 and 7 steps; then the probe's own
    run, ``probes.cover_kernel.run_probe`` (which fails unless the output
@@ -114,8 +109,9 @@ windows have not begun to drop kernel events.
    L2 cache warm and flushed before each launch, plain time and bound; and
    the device time of an empty launch (a one-word fill), the floor under
    PCV's bound, read the same two ways.  ``--probes`` runs phases 1, 15
-   and 16 alone after building just the two probe libraries and P16's
-   counter build; like ``--times`` it measures the checkout that holds
+   and 16 alone after building just the two probe libraries, then prints
+   each probe kernel's SASS instruction counts (``cuobjdump``; P16's sweep
+   loop by opcode); like ``--times`` it measures the checkout that holds
    the script, so a copy in a parent's ``git archive`` times the parent's
    kernels (parent, change, change, parent in one call);
 17. the serving stack over HTTP, at the CLI's default 9x9 deployment
@@ -235,7 +231,7 @@ windows have not begun to drop kernel events.
    (composite, K1) does the same for K1's library with its first static
    request; ``/metrics`` ``compile`` must then show exactly those two
    libraries, each built once and loaded once, with the nvcc seconds.
-   The smoke then builds the six libraries no node has used (one nvcc
+   The smoke then builds the five libraries no node has used (one nvcc
    each, all at once, in a process of its own, so no watch hears of it)
    beside phase 17's routes: 512 corpus boards and HARD_9 resident,
    HARD_9 ``?latency=1``, a ``count_all``, ``/solve_batch`` of 1,024, and
@@ -340,11 +336,10 @@ KERNELS = {
     "PCV": ("PCV cover_probe", "probe_cover.cu", "benchmarks/probe_cover_kernel.py:176"),
 }
 
-# The counter builds (-DDSST_STAGE_CLOCKS): K2's and K3's stage breakdowns,
-# P16's queue counts.
-COUNTER_TARGETS = (("fused_step", "clocks"), ("cover", "clocks"), ("probe_uint16", "clocks"))
-# What --probes builds: the two probe kernels and P16's counter build.
-PROBE_TARGETS = (("probe_uint16", ""), ("probe_cover", ""), ("probe_uint16", "clocks"))
+# The counter builds (-DDSST_STAGE_CLOCKS): K2's and K3's stage breakdowns.
+COUNTER_TARGETS = (("fused_step", "clocks"), ("cover", "clocks"))
+# What --probes builds: the two probe kernels.
+PROBE_TARGETS = (("probe_uint16", ""), ("probe_cover", ""))
 
 # Enumeration counts the cover phases must reproduce exactly (OEIS A000170
 # for n-queens 14; 2,339 tilings x 4 symmetries for pentomino 6x10).
@@ -485,64 +480,56 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def _matcher(match):
-    """A kernel-name predicate: a callable as it is, a string as a substring."""
-    return match if callable(match) else (lambda key: match in key)
-
-
-def window_ms(averages, match, want: int):
+def window_ms(averages, match: str, want: int):
     """Mean device ms per kernel event of one profiled window: the device
-    time of the events whose name ``match`` accepts (events with device
-    time only, so runtime calls never count) over their number; None when
-    that number is not ``want`` (a window that dropped or gained events)."""
-    hit = _matcher(match)
-    events = [e for e in averages if hit(e.key) and e.self_device_time_total > 0]
+    time of the events whose name contains ``match`` (events with device
+    time only, so runtime calls never count) over their number, with that
+    number; None for the time when the number is not ``want`` (a window
+    that dropped or gained events)."""
+    events = [e for e in averages if match in e.key and e.self_device_time_total > 0]
     count = sum(e.count for e in events)
     if count != want:
         return None, count
     return sum(e.self_device_time_total for e in events) / count / 1e3, count
 
 
-def device_ms(fn, reps: int, setup, match) -> float:
-    """Mean device time per kernel event of the kernels whose name contains
-    ``match`` (or that the callable ``match`` accepts), over ``reps`` calls
-    of ``fn(setup())`` under torch.profiler after one warm-up; ``setup``
-    runs before the profiled region.  Each call launches one such kernel.
-    The time is divided by the events the window recorded, not by
-    ``reps``: a window now and then drops events (for some kernels in every
-    window), and dividing by ``reps`` then read low.  A window with
-    exactly ``reps`` events is taken at once (up to three windows);
-    otherwise the one with the most, and the shortfall is printed (with
-    none in any window, CUDA events around the calls, printed as such).
+# Throwaway launches that open each profiled window of device_ms.
+PRIMERS = 16
+
+
+def device_ms(fn, reps: int, setup, match: str) -> float:
+    """Mean device time per call of the kernels whose name contains
+    ``match``, over ``reps`` calls of ``fn(setup())`` under torch.profiler
+    after one warm-up; ``setup`` runs before the profiled region.  Each
+    call launches one such kernel, and a window counts only if it recorded
+    exactly ``reps`` of them; up to three windows, else AssertionError.
+    The profiler loses the first kernel records of a window now and then
+    (the first two, on the H100 after a process has run a while), so each
+    window opens with ``PRIMERS`` launches of a one-word add and a sync.
     For a kernel shorter than its wrapper's host work, where CUDA events
     around the wrapper would time the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(setup())
-    best = (None, 0)
+    primer = torch.zeros(1, device="cuda")
+    counts = []
     for _ in range(3):
         args = [setup() for _ in range(reps)]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PRIMERS):
+                primer.add_(1)
+            torch.cuda.synchronize()
             for a in args:
                 fn(a)
             torch.cuda.synchronize()
         ms, count = window_ms(prof.key_averages(), match, reps)
-        if count == reps:
+        if ms is not None:
             return ms
-        if count > best[1]:
-            best = (window_ms(prof.key_averages(), match, count)[0], count)
-    if best[0] is None:
-        # A profiler that records nothing is a fault of the profiler, not of
-        # the kernel: CUDA events around the calls read an upper bound.
-        ms = event_ms(fn, reps, setup)
-        log(f"    (the profiler recorded no event of {match!r} in three windows; CUDA events "
-            f"around the calls instead, wrapper time included: {ms:.4f} ms)")
-        return ms
-    log(f"    (the profiler recorded {best[1]} of {reps} events of {match!r} in the best of "
-        f"three windows; time per recorded event)")
-    return best[0]
+        counts.append(count)
+    raise AssertionError(f"the profiler recorded {counts} events of {match!r} in three windows, "
+                         f"not {reps}")
 
 
 def max_abs_err(a, b) -> int:
@@ -624,6 +611,21 @@ def phase_build(targets=None, names=None) -> float:
     if spills:
         raise AssertionError(f"kernel instantiations spill: {spills}")
     return build_s
+
+
+def probe_sass() -> None:
+    """``--probes``: each probe kernel's SASS instruction count, and P16's
+    sweep loop by opcode."""
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_build
+
+    for lib in ("probe_uint16", "probe_cover"):
+        rows = sass_counts(cuda_build.lib_path(lib))
+        if not rows:
+            log(f"[sass] {lib}: cuobjdump not found (not measured)")
+        for fn, row in rows.items():
+            loop = (f", {row['loop']} in its sweep loop (the largest without a block barrier); "
+                    f"by opcode: {json.dumps(row['loop_ops'])}" if lib == "probe_uint16" else "")
+            log(f"[sass] {lib} {fn}: {row['total']} instructions{loop}")
 
 
 def sass_counts(lib_path) -> dict:
@@ -1665,15 +1667,13 @@ def queue_model(sweeps, tile: int, threads: int = 128, per_lane: int = 1) -> dic
 def phase_p16(sizes, dev):
     """P16 against its plain version, then the uint16 probe's own run (its
     launches counted from zero) and each mask width's device time; beside
-    them the input's per-warp divergence, the queue's model of it, the
-    counter build's counts (where the checkout has one) and the kernel's
-    SASS.  It calls only what every slice of the port provides (or checks
-    for the rest), so a copy of this script in an older checkout measures
-    that checkout's kernel (``--probes``)."""
+    them the input's per-warp divergence and the queue's model of it.  It
+    calls only what every slice of the port provides, so a copy of this
+    script in an older checkout measures that checkout's kernel
+    (``--probes``)."""
     import torch
 
     from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
-    from distributed_sudoku_solver_tpu_torch.ops import cuda_build
     from distributed_sudoku_solver_tpu_torch.probes import uint16 as p16
 
     batch = sizes["probe_boards"]
@@ -1715,26 +1715,6 @@ def phase_p16(sizes, dev):
         f"mean): 32 boards a warp {warp_divergence(sweeps, 32):.4f}, 64 boards a warp "
         f"{warp_divergence(sweeps, 64):.4f}; queue model at tile {tile}, 128 lanes: "
         f"{json.dumps(model)}")
-    if hasattr(p16, "fixpoint_probe_counts"):
-        for name, dtype in widths.items():
-            counts = p16.fixpoint_probe_counts(cand32.to(dtype))
-            slots = 64 if name == "uint16" else 32
-            if counts["board_sweeps"] != int(sweeps.sum()):
-                raise AssertionError(f"P16 {name} counter build swept {counts['board_sweeps']} "
-                                     f"board-sweeps, the boards need {int(sweeps.sum())}")
-            div = counts["warp_iterations"] * slots / counts["board_sweeps"]
-            log(f"[15] P16 {name} counter build: {json.dumps(counts)}; measured divergence "
-                f"(warp-iterations x {slots} slots / board-sweeps) {div:.4f}; chunk waits "
-                f"{counts['wait_cycles'] / max(counts['warp_loop_cycles'], 1):.4f} and write-back "
-                f"{counts['block_write_cycles'] / max(counts['block_cycles'], 1):.4f} of the cycles")
-    sass = sass_counts(cuda_build.lib_path("probe_uint16"))
-    for fn, row in sass.items():
-        bits = "16" if "Li16E" in fn else "32" if "Li32E" in fn else "?"
-        log(f"[15] P16 SASS probe_fixpoint_kernel<{bits}>: {row['total']} instructions, "
-            f"{row['loop']} in its sweep loop (the largest without a block barrier); by opcode: "
-            f"{json.dumps(row['loop_ops'])}")
-    if not sass:
-        log("[15] P16 SASS: cuobjdump not found (not measured)")
 
     # Bound: each board read and written once; the sweeps each board's own
     # loop runs, at the operations of a basic-rules sweep; 16-bit lanes
@@ -1835,11 +1815,8 @@ def phase_pcv(sizes, dev):
             device_ms(lambda _: (pre(), kernel()), sizes["reps"], lambda: None,
                       "probe_cover_kernel"),
             device_ms(lambda _: (pre(), one.fill_(1)), sizes["reps"], lambda: None,
-                      lambda key: "fill" in key.lower()))
+                      "FillFunctor"))
     ms = readings[False][0]
-    for fn_name, row in sass_counts(cuda_build.lib_path("probe_cover")).items():
-        if f"Li{w}E" in fn_name:
-            log(f"[16] PCV SASS probe_cover_kernel<{w}>: {row['total']} instructions")
     plain_ms = event_ms(lambda _: pcv.cover_probe_plain(*inputs), sizes["reps"])
     n_bytes = sum(x.numel() * x.element_size() for x in (*inputs, *outs))
     bms, by = bound_ms(n_bytes, pcv_ops(inputs, pcv.STEPS))
@@ -4196,6 +4173,7 @@ def main(argv=None) -> int:
         phase_build(PROBE_TARGETS, ("probe_uint16", "probe_cover"))
         p16 = phase_p16(SIZES, dev)
         pcv = phase_pcv(SIZES, dev)
+        probe_sass()
         log(json.dumps({"probes": {**{f"P16 {w}": row for w, row in p16.items()}, "PCV": pcv},
                         "card": device["smi"]}))
         return 0
@@ -4242,10 +4220,6 @@ def main(argv=None) -> int:
     if args.compile:
         return 0
     k1 = phase_k1(corpus, SIZES, dev)
-    # The probes early, while the process's profiler is fresh: in a full
-    # run its later windows drop kernel events, more of them the later.
-    p16 = phase_p16(SIZES, dev)
-    pcv = phase_pcv(SIZES, dev)
     k2 = phase_k2(corpus, SIZES, dev)
     phase_breakdown(corpus, SIZES, dev)
     main_launches = phase_main(corpus, dev)
@@ -4263,6 +4237,8 @@ def main(argv=None) -> int:
     flight_launches, _ = phase_flight(corpus, minrem_nodes, SIZES, dev)
     head_launches["head:cw-slack"] += flight_launches
     phase_snapshot(corpus, SIZES, dev)
+    p16 = phase_p16(SIZES, dev)
+    pcv = phase_pcv(SIZES, dev)
     serving = phase_serving(corpus, minrem_nodes, device, SIZES, dev)
     frontdoor = phase_frontdoor(corpus, device, SIZES, dev)
     cluster = phase_cluster(corpus, device, SIZES, dev)
@@ -4271,7 +4247,7 @@ def main(argv=None) -> int:
     log(f"[23] elapsed {time.perf_counter() - t_start:.1f} s; node F answered its first request "
         f"{serving_s['node_f_first_answer_s']:.1f} s after its start (K2's library built and "
         f"loaded on that request), node C its first in {serving_s['node_c_first_request_s']:.1f} s "
-        f"(K1's); the smoke's build of the other six libraries beside phase 21 took "
+        f"(K1's); the smoke's build of the other five libraries beside phase 21 took "
         f"{max(smoke_build_s.values(), default=0.0):.1f} s")
     kernels = [
         kernel_row("K1", launches=comp_launches["K1"] + serving["K1"] + mesh["K1"]

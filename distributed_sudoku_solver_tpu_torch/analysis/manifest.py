@@ -252,8 +252,8 @@ SYNC_METADATA_ATTRS = ("shape", "dtype", "device", "ndim")
 # torch.jit and no CUDA graph.
 
 #: The CUDA kernel libraries: every ``ops/cuda_build.TARGETS`` source, plus
-#: the ``clocks`` counter builds (K2's and K3's stage breakdowns, P16's
-#: queue counts), as (source, variant).  A library's name is ``cuda_build.lib_name``'s (a test holds
+#: the ``clocks`` counter builds the stage breakdowns load, as (source,
+#: variant).  A library's name is ``cuda_build.lib_name``'s (a test holds
 #: COMPILED_PROGRAMS to it; this module cannot import ops.cuda_build, which
 #: reaches it through the compile watch).
 KERNEL_LIBRARIES = (
@@ -264,7 +264,6 @@ KERNEL_LIBRARIES = (
     ("probe_cover", ""),
     ("fused_step", "clocks"),
     ("cover", "clocks"),
-    ("probe_uint16", "clocks"),
 )
 
 

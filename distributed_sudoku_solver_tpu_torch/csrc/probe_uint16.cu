@@ -37,10 +37,11 @@
 // registers and sweeps; when the board reaches its fixpoint or max_sweeps
 // the lane writes it back into the tile and takes the next unstarted board.
 // A warp sweeps converged boards only once the tile has no board left to
-// start; the counter build measures 1.22x (1.52x at 16 bits: 256 board
-// slots an SM for about 496 boards) against 1.79x (1.90x).  What remains is
-// the end of the tile, where lanes wait for its last boards: no lane can
-// know which boards run long, and each SM has only its tile to draw from.
+// start; the queue's model (chip_smoke.py queue_model) puts what is left
+// at 1.22x (1.52x at 16 bits: 256 board slots an SM for about 496 boards)
+// against 1.79x (1.90x).  What remains is the end of the tile, where lanes
+// wait for its last boards: no lane can know which boards run long, and
+// each SM has only its tile to draw from.
 // Chunks go back to device memory in coalesced stores as soon as their
 // boards are done, by warps with nothing left to sweep.
 
@@ -61,12 +62,6 @@
 // same cell: a decided cell keeps its value, any other loses what its
 // units decided); the first lets the compiler keep one popcount a cell
 // for both uses, the second costs the SWAR algebra least.
-//
-// Built with -DDSST_STAGE_CLOCKS (library probe_uint16_clocks), the kernel
-// also counts, into g_counts: warp-iterations, board-sweeps done in them,
-// cycles waiting for a chunk, each warp's sweep-loop cycles, each block's
-// write-back cycles and its cycles in all; dsst_probe_counts_take reads and
-// zeroes them.
 
 #include <cstdint>
 #include <type_traits>
@@ -79,12 +74,6 @@ constexpr int CELLS = N * N;
 constexpr int THREADS = 128;  // 4 warps: one for each scheduler of an SM
 constexpr int ALIGN = 8;      // tile widths are multiples of 8 boards
 constexpr uint32_t FULL = 0xFFFFFFFFu;
-
-#ifdef DSST_STAGE_CLOCKS
-// warp-iterations, board-sweeps, chunk-wait cycles (lanes / 32), warp loop
-// cycles, block write-back cycles, block cycles
-__device__ unsigned long long g_counts[6];
-#endif
 
 // Lane-wise mask algebra.  decided(c): c where it holds exactly one value
 // (a decided cell), else 0; naked(c, seen): the naked step, c less the
@@ -357,8 +346,7 @@ struct Slot {
 // it, once its chunk has landed.
 template <int BITS, int S>
 __device__ __forceinline__ void refill(uint32_t (&c)[CELLS], Slot& slot, const Tile& tile,
-                                       uint32_t parity, int* next,
-                                       unsigned long long& wait_cycles) {
+                                       uint32_t parity, int* next) {
   constexpr int PER = per_slot<BITS>();
   if (!slot.need) return;
   if (slot.board >= 0) {
@@ -384,13 +372,7 @@ __device__ __forceinline__ void refill(uint32_t (&c)[CELLS], Slot& slot, const T
   slot.sweeps = 0;
   slot.active = slot.board < tile.n;
   if (!slot.active) return;
-#ifdef DSST_STAGE_CLOCKS
-  const long long w0 = clock64();
-#endif
   bar_wait(&tile.bars[(unsigned)slot.board / (32 * PER)], parity);
-#ifdef DSST_STAGE_CLOCKS
-  wait_cycles += clock64() - w0;
-#endif
   const uint4* src = reinterpret_cast<const uint4*>(tile.words + (slot.board / PER) * STRIDE);
   // BITS = 16: the board's half of each word into half S of the cell.
   const uint32_t sel = (slot.board & 1) ? (S == 0 ? 0x3276u : 0x7610u)
@@ -426,39 +408,16 @@ __device__ __forceinline__ void solve_tile(const Tile& tile, int max_sweeps, uin
   uint32_t c[CELLS];
 #pragma unroll
   for (int i = 0; i < CELLS; ++i) c[i] = 0u;
-  unsigned long long wait_cycles = 0, iters = 0, done_sweeps = 0;
-#ifdef DSST_STAGE_CLOCKS
-  const long long loop_start = clock64();
-#endif
   Slot lo{-1, 0, false, true};
   Slot hi{-1, 0, false, BITS == 16};
   for (;;) {
-    refill<BITS, 0>(c, lo, tile, parity, next, wait_cycles);
-    if constexpr (BITS == 16) refill<BITS, 1>(c, hi, tile, parity, next, wait_cycles);
+    refill<BITS, 0>(c, lo, tile, parity, next);
+    if constexpr (BITS == 16) refill<BITS, 1>(c, hi, tile, parity, next);
     if (!__any_sync(FULL, lo.active || hi.active)) break;
     const uint32_t removed = sweep<BITS>(c);
-    ++iters;
-    done_sweeps += (lo.active ? 1 : 0) + (hi.active ? 1 : 0);
     mark_done<BITS, 0>(lo, removed, max_sweeps);
     if constexpr (BITS == 16) mark_done<BITS, 1>(hi, removed, max_sweeps);
   }
-#ifdef DSST_STAGE_CLOCKS
-  const unsigned long long loop_cycles = clock64() - loop_start;
-  for (int o = 16; o > 0; o >>= 1) {
-    wait_cycles += __shfl_down_sync(FULL, wait_cycles, o);
-    done_sweeps += __shfl_down_sync(FULL, done_sweeps, o);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(&g_counts[0], iters);
-    atomicAdd(&g_counts[1], done_sweeps);
-    atomicAdd(&g_counts[2], wait_cycles / 32);
-    atomicAdd(&g_counts[3], loop_cycles);
-  }
-#else
-  (void)wait_cycles;
-  (void)iters;
-  (void)done_sweeps;
-#endif
 }
 
 // BITS = 32: uint32 masks; BITS = 16: uint16 masks.  Dynamic shared
@@ -480,10 +439,6 @@ probe_fixpoint_kernel(const void* __restrict__ in, void* __restrict__ out, int T
   tile.claimed = tile.done + chunks;
   tile.T = T;
   tile.mode = mode;
-#ifdef DSST_STAGE_CLOCKS
-  const long long block_start = clock64();
-  unsigned long long write_cycles = 0;
-#endif
   if (threadIdx.x == 0) {
     for (int j = 0; j < chunks; ++j) bar_init(&tile.bars[j], THREADS);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -504,24 +459,12 @@ probe_fixpoint_kernel(const void* __restrict__ in, void* __restrict__ out, int T
       for (int j = 0; j * 32 * PER < tile.n; ++j) bar_wait(&tile.bars[j], parity);
     }
     __syncthreads();
-#ifdef DSST_STAGE_CLOCKS
-    const long long w0 = clock64();
-#endif
     drain<BITS>(static_cast<Elem<BITS>*>(out), tile, true);
     __syncthreads();
     for (int j = threadIdx.x; j < chunks; j += THREADS) tile.done[j] = tile.claimed[j] = 0;
     if (threadIdx.x == 0) next_board = 0;
     __syncthreads();
-#ifdef DSST_STAGE_CLOCKS
-    write_cycles += clock64() - w0;
-#endif
   }
-#ifdef DSST_STAGE_CLOCKS
-  if (threadIdx.x == 0) {
-    atomicAdd(&g_counts[4], write_cycles);
-    atomicAdd(&g_counts[5], (unsigned long long)(clock64() - block_start));
-  }
-#endif
 }
 
 struct Shape {
@@ -585,15 +528,3 @@ extern "C" int dsst_probe_fixpoint(const void* in, void* out, int T, int max_swe
   if (bits == 16) return launch<16>(in, out, T, max_sweeps, stream);
   return (int)cudaErrorInvalidValue;
 }
-
-#ifdef DSST_STAGE_CLOCKS
-// Copies g_counts to host (6 uint64) and zeroes them; call after a sync.
-extern "C" int dsst_probe_counts_take(void* host) {
-  cudaError_t err = cudaMemcpyFromSymbol(host, g_counts, sizeof(g_counts));
-  if (err == cudaSuccess) {
-    const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
-    err = cudaMemcpyToSymbol(g_counts, zero, sizeof(zero));
-  }
-  return (int)err;
-}
-#endif

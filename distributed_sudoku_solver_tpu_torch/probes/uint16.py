@@ -20,8 +20,7 @@ warp stops sweeping boards that have converged.  At 16 bits the kernel
 packs two boards into a 32-bit word and sweeps both at once:
 :func:`swar_dec`, :func:`swar_nonzero` and :func:`swar_multi` model its
 per-half identities in numpy (the CPU tests check them on every 16-bit
-value).  :func:`fixpoint_probe_counts` runs the kernel's counter build
-(``probe_uint16_clocks``) and returns its counts.
+value).
 
 Run: ``python -m distributed_sudoku_solver_tpu_torch.probes.uint16
 [--device cpu] [--batch 65536] [--iters 16]``; prints the probe's JSON line.
@@ -173,35 +172,6 @@ def _lib():
     fn.argtypes = [_P, _P, _I, _I, _I, _P]
     fn.restype = _I
     return fn
-
-
-COUNTS = ("warp_iterations", "board_sweeps", "wait_cycles", "warp_loop_cycles",
-          "block_write_cycles", "block_cycles")
-
-
-def fixpoint_probe_counts(cand_t: torch.Tensor, max_sweeps: int = 64) -> dict:
-    """One launch of the kernel's counter build on a CUDA tensor (not
-    counted in ``fixpoint_probe_cuda.launches``: the probe's path runs the
-    plain build), synchronised; returns its counts (:data:`COUNTS`)."""
-    bits = _check(cand_t)
-    if cand_t.device.type != "cuda":
-        raise ValueError(f"fixpoint_probe_counts needs a CUDA tensor, got {cand_t.device}")
-    lib = cuda_build.load("probe_uint16", "clocks")
-    fn, take = lib.dsst_probe_fixpoint, lib.dsst_probe_counts_take
-    fn.argtypes = [_P, _P, _I, _I, _I, _P]
-    fn.restype = _I
-    take.argtypes = [_P]
-    take.restype = _I
-    counts = np.zeros(len(COUNTS), dtype=np.uint64)
-    torch.cuda.synchronize(cand_t.device)
-    cuda_build.check(take(counts.ctypes.data), "dsst_probe_counts_take")  # zero them
-    out = torch.empty_like(cand_t)
-    stream = torch.cuda.current_stream(cand_t.device).cuda_stream
-    err = fn(cand_t.data_ptr(), out.data_ptr(), cand_t.shape[2], max_sweeps, bits, stream)
-    cuda_build.check(err, "dsst_probe_fixpoint (counter build)")
-    torch.cuda.synchronize(cand_t.device)
-    cuda_build.check(take(counts.ctypes.data), "dsst_probe_counts_take")
-    return {name: int(c) for name, c in zip(COUNTS, counts)}
 
 
 def fixpoint_probe_cuda(cand_t: torch.Tensor, max_sweeps: int = 64) -> torch.Tensor:

@@ -14,8 +14,9 @@
   a numpy sweep built on the kernel's lane algebra (its naked step ``c &
   (one(c) | ~seen)`` at 32 bits, ``c & ~(seen & multi(c))`` on two boards a
   word at 16) against the plain sweep.  Exact.
-* ``chip_smoke.window_ms`` (how the smoke reads a profiled window): only
-  windows with exactly the expected number of kernel events count.
+* ``chip_smoke.window_ms`` and ``device_ms`` (how the smoke reads a
+  profiled window): only windows with exactly the expected number of
+  kernel events count, three at most, else the reading fails.
 * Card tests (``-m cuda``): each kernel against its plain version, exact:
   P16 at the queue's edges (one board, the tiles' ragged ends, one tile a
   block and more, odd T at 16 bits, a solved board, full-width random
@@ -363,9 +364,59 @@ def test_profiler_window_counts_only_exact_windows():
     dropped = [ev("void probe_fixpoint_kernel<32>(...)", 3, 300.0)]
     assert chip_smoke.window_ms(dropped, "probe_fixpoint_kernel", 5) == (None, 3)
     assert chip_smoke.window_ms(dropped, "probe_fixpoint_kernel", 3) == (0.1, 3)
-    keys = {"void other_kernel()"}
-    assert chip_smoke.window_ms(window, lambda k: k in keys, 3) == (0.03, 3)
+    assert chip_smoke.window_ms(window, "other_kernel", 3) == (0.03, 3)
     assert chip_smoke.window_ms(window, "Launch", 5) == (None, 0)
+
+
+@pytest.mark.parametrize("windows, want", [
+    ([3, 5], 0.1),      # a short window, then an exact one
+    ([4, 6, 5], 0.1),   # short, long, exact
+    ([3, 4, 3], None),  # three short windows: the reading fails
+])
+def test_device_ms_counts_only_exact_windows(monkeypatch, windows, want):
+    """``chip_smoke.device_ms`` reads the first window with exactly
+    ``reps`` kernel events, each opened by the primer launches, and fails
+    after three windows without one (no reading from a short window)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    import torch.profiler
+
+    counts = iter(windows)
+    calls = []
+    zeros = torch.zeros
+
+    class Window:
+        def __enter__(self):
+            self.n = next(counts)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [SimpleNamespace(key="void probe_fixpoint_kernel<32>(...)", count=self.n,
+                                    self_device_time_total=100.0 * self.n)]
+
+    class Primer:
+        def add_(self, v):
+            calls.append("primer")
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Window())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch, "zeros", lambda *a, **kw: Primer() if kw.get("device") == "cuda"
+                        else zeros(*a, **kw))
+    fn = lambda a: calls.append("call")  # noqa: E731
+    if want is None:
+        with pytest.raises(AssertionError, match=r"recorded \[3, 4, 3\] events"):
+            chip_smoke.device_ms(fn, 5, lambda: None, "probe_fixpoint_kernel")
+        return
+    assert chip_smoke.device_ms(fn, 5, lambda: None, "probe_fixpoint_kernel") == pytest.approx(want)
+    windows_run = len(windows)
+    assert calls.count("primer") == chip_smoke.PRIMERS * windows_run
+    assert calls.count("call") == 1 + 5 * windows_run  # the warm-up, then reps a window
 
 
 def test_queue_model_and_warp_divergence():
@@ -479,12 +530,22 @@ def test_pcv_kernel_matches_plain(cuda_device, steps):
 @pytest.mark.parametrize("steps", [0, 1, 3, 7])
 def test_pcv_kernel_matches_plain_after_l2_flush(cuda_device, steps):
     """The kernel with its inputs out of the L2 cache: 128 MB written over
-    the 50 MB cache just before the launch."""
+    the 50 MB cache just before the launch, which goes through the C entry
+    point (the wrapper's 0/1 check would read the incidence back into L2)."""
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_build
+
     inputs = [x.to(cuda_device) for x in cover_kernel.probe_inputs()]
     want = cover_kernel.cover_probe_plain(*inputs, steps)
+    inc, packed, meta, stack = inputs
+    got = (torch.empty((inc.shape[1], packed.shape[1]), dtype=torch.int32, device=cuda_device),
+           torch.empty_like(packed), torch.empty_like(meta), torch.empty_like(stack))
+    fn = cover_kernel._lib()
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=cuda_device)
     flush.bitwise_not_()
-    got = cover_kernel.cover_probe(*inputs, steps)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    err = fn(*(x.data_ptr() for x in (*inputs, *got)), packed.shape[0], inc.shape[1],
+             packed.shape[1], stack.shape[0], steps, stream)
+    cuda_build.check(err, "dsst_probe_cover")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
