@@ -932,15 +932,16 @@ def check_solutions(grids, solution, solved, unsat, what: str) -> None:
         raise AssertionError(f"{what}: {len(bad)} invalid solutions, first {bad[0]}")
 
 
-def bulk_pass(corpus, dev, inflight: int):
+def bulk_pass(corpus, dev, inflight: int, traced: bool = True):
     """One timed ``solve_bulk`` pass with ``BulkConfig(inflight=...)``:
-    (result, wall seconds to the device sync, trace)."""
+    (result, wall seconds to the device sync, trace).  With ``traced``
+    false the pass records no span and the trace is None."""
     import torch
 
     from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
     from distributed_sudoku_solver_tpu_torch.ops.bulk import BulkConfig, solve_bulk
 
-    trace: dict = {}
+    trace = {} if traced else None
     t0 = time.perf_counter()
     res = solve_bulk(corpus, SUDOKU_9, BulkConfig(inflight=inflight), trace=trace, device=dev)
     torch.cuda.synchronize()
@@ -949,7 +950,7 @@ def bulk_pass(corpus, dev, inflight: int):
 
 def _stage_line(trace: dict) -> str:
     keys = ("pack_s", "solve_s", "drain_s", "first_pass_s", "chunks", "inflight",
-            "remaining_after_first")
+            "remaining_after_first", "k2_dispatches", "host_syncs")
     return json.dumps({k: trace[k] for k in keys if k in trace})
 
 
@@ -966,7 +967,8 @@ def bulk_turns(corpus, dev, order, ref=None, tag="[6]") -> dict:
         for f in ("solution", "solved", "unsat", "by_propagation", "searched"):
             if not np.array_equal(np.asarray(getattr(res, f)), np.asarray(getattr(ref, f))):
                 raise AssertionError(f"bulk inflight={inflight}: {f} differs from the first pass")
-        out.setdefault(inflight, []).append({"wall_s": wall, **trace, "rungs": len(trace["rungs"])})
+        out.setdefault(inflight, []).append({"wall_s": wall, **trace, "rungs": len(trace["rungs"]),
+                                             "spans": len(trace["spans"])})
         log(f"{tag} bulk inflight={inflight}: {len(corpus)} boards in {wall:.4f} s = "
             f"{len(corpus) / wall:.1f} boards/s; trace {_stage_line(trace)}")
     return out
@@ -978,12 +980,12 @@ def phase_main(corpus, dev):
     from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
     from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
-    _, wall, _ = bulk_pass(corpus, dev, 3)
+    _, wall, _ = bulk_pass(corpus, dev, 3, traced=False)
     log(f"[6] bulk pass 1: {wall:.3f} s")
 
     cuda_step.fused_rounds_cuda.launches = 0
     cuda_propagate.propagate_fixpoint_cuda.launches = 0
-    res, wall, trace = bulk_pass(corpus, dev, 3)
+    res, wall, _ = bulk_pass(corpus, dev, 3, traced=False)
     launches = {"K2": cuda_step.fused_rounds_cuda.launches,
                 "K1": cuda_propagate.propagate_fixpoint_cuda.launches}
     check_solutions(corpus, res.solution, res.solved, res.unsat, "bulk")
@@ -996,7 +998,15 @@ def phase_main(corpus, dev):
     log(f"[6] bulk pass 2 (inflight=3): {len(corpus)} boards in {wall:.3f} s = "
         f"{len(corpus) / wall:.1f} boards/s; searched {res.searched}, by propagation "
         f"{int(res.by_propagation.sum())}; launches {launches}")
-    log(f"[6] trace {json.dumps(trace, default=str)}")
+    k2_before = cuda_step.fused_rounds_cuda.launches
+    traced, wall_t, trace = bulk_pass(corpus, dev, 3)
+    k2 = cuda_step.fused_rounds_cuda.launches - k2_before
+    if trace["k2_dispatches"] != k2 or not np.array_equal(traced.solution, res.solution):
+        raise AssertionError(f"bulk traced pass: {trace['k2_dispatches']} K2 dispatch spans "
+                             f"against {k2} launches, or a solution differs from the untraced pass")
+    log(f"[6] bulk pass 3 (inflight=3, traced): {wall_t:.3f} s = {len(corpus) / wall_t:.1f} "
+        f"boards/s, {100.0 * (wall_t / wall - 1):+.2f} % of pass 2's wall; trace "
+        f"{json.dumps({**trace, 'spans': len(trace['spans'])}, default=str)}")
     bulk_turns(corpus, dev, (1, 3, 1), ref=res)
     return launches
 

@@ -191,9 +191,9 @@ SYNC_HOT_REGIONS = {
         "ResidentFlight._advance_state",
     ),
     "ops/bulk.py": (
-        "solve_bulk.run_chunk",
-        "solve_bulk.run_rung_stepped",
-        "solve_bulk.drain",
+        "_solve_bulk.run_chunk",
+        "_solve_bulk.run_rung_stepped",
+        "_solve_bulk.drain",
     ),
     "serving/portfolio.py": (
         "race_jobs",
@@ -453,7 +453,7 @@ DEADCK_THREAD_ROOTS = {
     "serving/brownout.py": ("BrownoutController.evaluate",),
     "utils/profiling.py": ("start_profile_window.run",),
     "utils/dataset.py": ("solve_file",),
-    "ops/bulk.py": ("solve_bulk",),
+    "ops/bulk.py": ("solve_bulk", "_solve_bulk"),
     "parallel/sharded.py": ("solve_batch_sharded", "solve_csp_sharded"),
     "parallel/fused_sharded.py": ("solve_batch_fused_sharded", "solve_csp_fused_sharded"),
     "parallel/board_sharded.py": ("solve_batch_banded",),

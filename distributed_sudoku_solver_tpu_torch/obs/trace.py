@@ -42,6 +42,14 @@ lane's single process).
 Timestamps come from the injectable ``clock`` only, so the simnet lane
 asserts multi-node stitching on its virtual clock with no sleeps.
 
+**Call-scoped recordings** (:func:`recording`): a call that wants its
+own spans under one trace id (``ops/bulk.solve_bulk``: one id per pass)
+opens a :class:`Recording` over its body.  The code below it reaches the
+recording through :func:`current`, a context variable, so a serving flight
+on another thread never sees it.  Each span goes to the installed
+recorder, is counted by name in the recording's ``counts``, and, where
+the caller asks to keep them, is kept, unbounded, in its ``spans``.
+
 Import discipline: stdlib only (like ``serving/faults.py``).  Everything
 imports this module; it imports nothing of the system back.
 """
@@ -50,12 +58,17 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
+import itertools
 import json
 import logging
+import math
 import numbers
 import os
 from distributed_sudoku_solver_tpu_torch.obs import lockdep
 import time
+import types
+import uuid
 from typing import Callable, Iterable, Optional
 
 _LOG = logging.getLogger(__name__)
@@ -281,16 +294,22 @@ class TraceRecorder:
     def perfetto(self, spans: Optional[list] = None) -> dict:
         """The recent ring (or ``spans``) as Chrome-trace JSON, openable in
         Perfetto / chrome://tracing.  pid = recording node, tid = site
-        family; ``args`` carries trace id, uuids, and attrs."""
+        family; ``args`` carries trace id, uuids, and attrs.  ``ts`` is in
+        µs from the top-level ``baseTimeNanoseconds``, the earliest span's
+        start (floored to a whole µs) in ns on the recorder's clock, as
+        kineto writes its Chrome export: with the default wall clock,
+        ``ts * 1000 + baseTimeNanoseconds`` is a span's start on the epoch
+        clock that ``torch.profiler`` stamps device events with."""
         if spans is None:
             spans = self.spans()
         pids: dict = {}
         tids: dict = {}
         meta: list = []
         events: list = []
-        # Rebase to the earliest span: monotonic-clock origins are
-        # arbitrary (and can be huge); Chrome-trace ts must be >= 0.
-        base = min((s["t0"] for s in spans), default=0.0)
+        # Rebase to the earliest span, in whole µs (Chrome-trace ts must be
+        # >= 0), and keep the base for another trace of the process to
+        # line up with.
+        base_us = math.floor(min((s["t0"] for s in spans), default=0.0) * 1e6)
         for s in sorted(spans, key=lambda s: (s["t0"], s["t1"], s["id"])):
             pid = pids.get(s["node"])
             if pid is None:
@@ -324,7 +343,7 @@ class TraceRecorder:
                     "name": s["name"],
                     "cat": s["site"],
                     "ph": "X",
-                    "ts": int(round((s["t0"] - base) * 1e6)),
+                    "ts": int(round(s["t0"] * 1e6)) - base_us,
                     "dur": max(0, int(round((s["t1"] - s["t0"]) * 1e6))),
                     "pid": pid,
                     "tid": tid,
@@ -335,7 +354,8 @@ class TraceRecorder:
                     },
                 }
             )
-        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+                "baseTimeNanoseconds": base_us * 1000}
 
     # -- the flight-recorder dump --------------------------------------------
     def dump(self, reason: str, metrics: Optional[dict] = None) -> Optional[str]:
@@ -407,3 +427,93 @@ def installed(recorder: TraceRecorder):
         yield recorder
     finally:
         install(None)
+
+
+# -- call-scoped recordings ---------------------------------------------------
+
+
+class Recording:
+    """One call's spans under one trace id.  Each goes to ``recorder``, the
+    installed one, if any; with ``keep`` it is also kept, unbounded and in
+    order of end, in ``spans`` (with no recorder, a span dict of the schema
+    :meth:`TraceRecorder.record` makes, on the wall clock).  ``counts``
+    counts the spans by name, kept or not.  Spans of one name are recorded
+    on one thread (``solve_bulk``'s drain worker has names of its own)."""
+
+    __slots__ = ("recorder", "trace", "keep", "spans", "counts", "now", "_seq")
+
+    def __init__(self, recorder: Optional[TraceRecorder], trace: str, keep: bool):
+        self.recorder = recorder
+        self.trace = trace
+        self.keep = keep
+        self.spans: list = []
+        self.counts: dict = {}
+        self.now: Callable[[], float] = time.time if recorder is None else recorder.now
+        self._seq = itertools.count(1)
+
+    def span(self, name: str, site: str, t0: float, **attrs) -> float:
+        """Record ``name`` from ``t0`` to now; returns now, which starts
+        the next span of a loop (each boundary is read once)."""
+        t1 = self.now()
+        self.counts[name] = self.counts.get(name, 0) + 1
+        if self.recorder is not None:
+            span = self.recorder.record(self.trace, name, site, t0, t1, attrs=attrs)
+        elif self.keep:
+            span = {
+                "id": f"local/{next(self._seq)}",
+                "trace": self.trace,
+                "name": name,
+                "site": site,
+                "t0": float(t0),
+                "t1": float(t1),
+                "node": "local",
+                "uuids": [],
+                "attrs": {k: _json_safe(v) for k, v in attrs.items()},
+            }
+        if self.keep:
+            self.spans.append(span)
+        return t1
+
+
+class _Off:
+    """The recording of a call that records nothing: no clock read, no span."""
+
+    __slots__ = ()
+    spans = ()
+    counts = types.MappingProxyType({})
+
+    def now(self) -> float:
+        return 0.0
+
+    def span(self, name: str, site: str, t0: float, **attrs) -> float:
+        return 0.0
+
+
+OFF = _Off()
+
+_current: contextvars.ContextVar = contextvars.ContextVar("obs.trace.current", default=None)
+
+
+def current() -> Optional[Recording]:
+    """The recording open in this context, or None (the hot loops' seam:
+    one context read per call; ``current() or OFF`` records nothing)."""
+    return _current.get()
+
+
+@contextlib.contextmanager
+def recording(keep: bool = False):
+    """Open a call-scoped :class:`Recording` over the block, under a fresh
+    uuid, and yield it.  Its spans go to the installed recorder, and with
+    ``keep`` into its ``spans`` as well.  With no recorder installed and
+    no ``keep``, nothing is opened: the block gets :data:`OFF` and
+    :func:`current` stays None."""
+    rec = _active
+    if rec is None and not keep:
+        yield OFF
+        return
+    r = Recording(rec, uuid.uuid4().hex, keep)
+    token = _current.set(r)
+    try:
+        yield r
+    finally:
+        _current.reset(token)

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -32,6 +31,7 @@ import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
+from distributed_sudoku_solver_tpu_torch.obs import trace as trace_mod
 from distributed_sudoku_solver_tpu_torch.ops import wire
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     FUSED_STEPS_LINKED,
@@ -109,13 +109,31 @@ def solve_bulk(
     """Solve ``grids`` int[B, n, n] (0 = empty); B may be huge.
 
     Results are independent of chunk sizes and of ``config.inflight``.
-    With ``trace`` (a dict), per-stage host wall clocks are recorded into
-    it: ``pack_s`` (pack and upload), ``solve_s`` (the chunk solves, on the
-    main thread), ``drain_s`` (each chunk's result fetch and unpack, on the
-    drain worker), ``first_pass_s``, ``remaining_after_first`` and per-rung
-    dicts under ``rungs``.  With ``inflight`` above 1 the drain of one
-    chunk overlaps the pack and solve of the next, so the three stages can
-    add up to more than ``first_pass_s``.
+
+    Each call with ``trace`` (a dict), or under an installed
+    ``obs.trace`` recorder, opens one call-scoped recording with a trace
+    id of its own (``obs.trace.recording``): its spans go to the
+    installed recorder, and with ``trace`` into ``trace["spans"]``.  The
+    spans:
+    ``bulk.pass`` (the call), ``bulk.first_pass``, per first-pass chunk
+    ``bulk.pack`` (pack and upload), ``bulk.solve`` (the chunk's solve, on
+    the main thread) and ``bulk.drain`` (its result fetch and unpack, on
+    the drain worker), per rung ``bulk.rung``, per rung chunk
+    ``rung.start`` (the frontier's upload), ``rung.advance`` (each
+    ``dispatch_steps`` advance) and ``rung.finalize`` (the terminal
+    fetch); inside the fused loop ``fused.dispatch`` and ``fused.sync``
+    (``ops/cuda_step._run_fused``); and one ``*.sync`` span for every
+    other host read: ``rung.sync``, ``drain.sync``, ``finalize.sync``.
+
+    With ``trace``, the call also writes into it: ``trace_id``, every span
+    under ``spans``, ``k2_dispatches`` and ``host_syncs`` (its
+    ``fused.dispatch`` and ``*.sync`` spans), the stage sums ``pack_s``,
+    ``solve_s``, ``drain_s`` and ``first_pass_s`` (the durations of the
+    matching spans), ``remaining_after_first``, and per-rung dicts under
+    ``rungs`` (``wall_s`` the ``bulk.rung`` span's, and the rung's own
+    ``k2_dispatches`` and ``host_syncs``).  With ``inflight`` above 1 the
+    drain of one chunk overlaps the pack and solve of the next, so the
+    three stages can add up to more than ``first_pass_s``.
 
     ``faults.fire("bulk.dispatch")`` (``serving/faults.py``) runs before
     each first-pass chunk's pack and before each rung dispatch: an
@@ -130,6 +148,39 @@ def solve_bulk(
     calls this with the same ``grids`` and gets the whole result: the
     collectives run on this thread, in chunk order, and the drain worker
     only fetches."""
+    with trace_mod.recording(keep=trace is not None) as rec:
+        t0 = rec.now()
+        res, info = _solve_bulk(grids, geom, config, mesh, device, rec)
+        counts = _counts(rec.counts)
+        rec.span("bulk.pass", "bulk.pass", t0, boards=len(res.solved), chunks=info["chunks"],
+                 **counts)
+    if trace is not None:
+        spans = list(rec.spans)
+        trace.update(info)
+        trace.update(counts)
+        trace["trace_id"] = rec.trace
+        trace["spans"] = spans
+        for key, name in (("pack_s", "bulk.pack"), ("solve_s", "bulk.solve"),
+                          ("drain_s", "bulk.drain"), ("first_pass_s", "bulk.first_pass")):
+            trace[key] = sum(s["t1"] - s["t0"] for s in spans if s["name"] == name)
+    return res
+
+
+def _counts(counts, since=None) -> dict:
+    """K2 dispatches and host syncs among a recording's span ``counts`` by
+    name (less those of ``since``, an earlier copy): its ``fused.dispatch``
+    and ``*.sync`` spans."""
+    since = since or {}
+    n = {name: c - since.get(name, 0) for name, c in counts.items()}
+    return {
+        "k2_dispatches": n.get("fused.dispatch", 0),
+        "host_syncs": sum(c for name, c in n.items() if name.endswith(".sync")),
+    }
+
+
+def _solve_bulk(grids, geom: Geometry, config: BulkConfig, mesh, device, rec):
+    """:func:`solve_bulk`'s body under the call's recording ``rec``: the
+    result, and a dict of the pass's shape and per-rung dicts."""
     dev = resolve_device(device) if mesh is None else mesh.devices[0]
     n_dev = 1 if mesh is None else mesh.size
     on_cuda = dev.type == "cuda"
@@ -177,17 +228,17 @@ def solve_bulk(
         fused_steps=config.fused_steps,
     ).with_fused_steps(FUSED_STEPS_LINKED)
 
-    stage = {"pack_s": 0.0, "solve_s": 0.0, "drain_s": 0.0}
     # The solve's stream: the drain worker fetches on it, so its copy is
     # ordered after the chunk's kernels (a new thread starts on the
     # default stream, whatever the caller's current stream is).
     stream = torch.cuda.current_stream(dev) if on_cuda else None
 
     def drain(lo: int, res: torch.Tensor) -> None:
-        t0 = time.perf_counter()
+        t0 = rec.now()
         with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
             # syncck: allow(THE one result fetch per first-pass chunk, on the drain worker so it overlaps uploads)
             fetched = res.cpu().numpy()
+        rec.span("drain.sync", "fetch.result", t0)
         hi = min(lo + chunk, b)
         k = hi - lo
         r_sol, r_solved, r_unsat, r_branched = wire.unpack_result_for(fetched, geom, fmt)
@@ -196,40 +247,39 @@ def solve_bulk(
         solved[lo:hi] = r_solved
         unsat[lo:hi] = r_unsat[:k]
         branched[lo:hi] = r_branched[:k]
-        stage["drain_s"] += time.perf_counter() - t0
+        rec.span("bulk.drain", "bulk.drain", t0, chunk=lo // chunk)
 
     # One drain worker keeps the drains in chunk order, and each writes its
     # own rows of the result arrays.  The upload is a blocking copy from
     # pageable memory, so no host buffer has to outlive its chunk's call.
-    t_first = time.perf_counter()
+    t_first = rec.now()
     pending: list = []
     with ThreadPoolExecutor(max_workers=1) as pool:
         for lo in range(0, b, chunk):
             batch = pad_to(grids[lo : lo + chunk], chunk)
             faults.fire("bulk.dispatch")
-            t0 = time.perf_counter()
+            t = rec.now()
             packed = torch.from_numpy(wire.pack_grids_for(batch, geom, fmt)).to(dev)
-            t1 = time.perf_counter()
+            t = rec.span("bulk.pack", "bulk.dispatch", t, chunk=lo // chunk)
             res = run_chunk(packed, first_cfg)
-            stage["pack_s"] += t1 - t0
-            stage["solve_s"] += time.perf_counter() - t1
+            rec.span("bulk.solve", "bulk.dispatch", t, chunk=lo // chunk)
             pending.append(pool.submit(drain, lo, res))
             if len(pending) >= max(1, config.inflight):
                 pending.pop(0).result()
         for f in pending:
             f.result()
+    rec.span("bulk.first_pass", "bulk.first_pass", t_first)
 
     by_propagation = solved & ~branched
     searched = int(branched.sum())
-    if trace is not None:
-        trace.update(stage)
-        trace["first_pass_s"] = time.perf_counter() - t_first
-        trace["chunks"] = -(-b // chunk)
-        trace["inflight"] = max(1, config.inflight)
-        trace["step_impl"] = step_impl
-        trace["fused_steps"] = first_cfg.fused_steps
-        trace["remaining_after_first"] = int((~solved & ~unsat).sum())
-        trace["rungs"] = []
+    info = {
+        "chunks": -(-b // chunk),
+        "inflight": max(1, config.inflight),
+        "step_impl": step_impl,
+        "fused_steps": first_cfg.fused_steps,
+        "remaining_after_first": int((~solved & ~unsat).sum()),
+        "rungs": [],
+    }
 
     dispatches = [0]
 
@@ -253,19 +303,30 @@ def solve_bulk(
             )
         else:
             advance = advance_frontier_status
+        t = rec.now()
         state = start_frontier(torch.from_numpy(batch.astype(np.int32)).to(dev), geom, scfg)
+        rec.span("rung.start", "bulk.dispatch", t)
         n_rung_jobs = len(batch)
         while True:
             faults.fire("bulk.dispatch")
+            t = rec.now()
             state, status = advance(state, config.dispatch_steps, geom, scfg)
+            t = rec.span("rung.advance", "bulk.dispatch", t)
             dispatches[0] += 1
-            info = unpack_status(status, n_rung_jobs)
-            if not info["has_work"].any() or info["steps"] >= scfg.max_steps:
+            st = unpack_status(status, n_rung_jobs)
+            rec.span("rung.sync", "fetch.status", t)
+            if not st["has_work"].any() or st["steps"] >= scfg.max_steps:
                 break
+        t = rec.now()
         res = _finalize(state)
         packed = wire.pack_result_device(res.solution, res.solved, res.unsat, res.nodes > 0, geom)
+        t_fetch = rec.now()
         # syncck: allow(terminal rung drain — one wire-format fetch after the rung's last dispatch)
-        return wire.unpack_result_host(packed.cpu().numpy(), geom)
+        fetched = packed.cpu().numpy()
+        rec.span("finalize.sync", "fetch.finalize", t_fetch)
+        out = wire.unpack_result_host(fetched, geom)
+        rec.span("rung.finalize", "bulk.finalize", t)
+        return out
 
     remaining = np.flatnonzero(~solved & ~unsat)
     rungs = default_rungs(geom) if config.rungs is None else config.rungs
@@ -302,7 +363,8 @@ def solve_bulk(
             steal_rounds=4 if lanes_per_job > 1 else 1,
         )
         still: list[int] = []
-        t_rung = time.perf_counter()
+        t_rung = rec.now()
+        mark = dict(rec.counts)
         dispatches[0] = 0
         for lo in range(0, len(remaining), jobs_per_chunk):
             idx = remaining[lo : lo + jobs_per_chunk]
@@ -314,17 +376,18 @@ def solve_bulk(
             solved[idx] = r_solved
             unsat[idx] = r_unsat
             still.extend(idx[~r_solved & ~r_unsat])
-        if trace is not None:
-            trace["rungs"].append({
-                "wall_s": time.perf_counter() - t_rung,
-                "rung": tuple(int(x) for x in rung),
-                "lanes": int(scfg.lanes),
-                "slots": int(scfg.stack_slots),
-                "step_impl": rung_impl,
-                "dispatches": dispatches[0],
-                "survivors_in": len(remaining),
-                "survivors_out": len(still),
-            })
+        fields = {
+            "rung": tuple(int(x) for x in rung),
+            "lanes": int(scfg.lanes),
+            "slots": int(scfg.stack_slots),
+            "step_impl": rung_impl,
+            "dispatches": dispatches[0],
+            "survivors_in": len(remaining),
+            "survivors_out": len(still),
+            **_counts(rec.counts, mark),
+        }
+        t_end = rec.span("bulk.rung", "bulk.rung", t_rung, **fields)
+        info["rungs"].append({"wall_s": t_end - t_rung, **fields})
         # syncck: allow(host index bookkeeping — `still` is a Python list of numpy indices, no device value)
         remaining = np.asarray(still, dtype=remaining.dtype)
 
@@ -334,4 +397,4 @@ def solve_bulk(
         unsat=unsat,
         by_propagation=by_propagation,
         searched=searched,
-    )
+    ), info

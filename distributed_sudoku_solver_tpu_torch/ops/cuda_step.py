@@ -42,6 +42,7 @@ import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
 from distributed_sudoku_solver_tpu_torch.models.sudoku import SudokuCSP
+from distributed_sudoku_solver_tpu_torch.obs import trace
 from distributed_sudoku_solver_tpu_torch.ops import cuda_build, ordering
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import (
     is_single,
@@ -504,6 +505,11 @@ def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=Non
     )
 
 
+def _fused_go(fs: FusedFrontier, config, limit) -> bool:
+    """The loop condition of :func:`_run_fused`, read on the host (one sync)."""
+    return bool(_fused_live(fs).any() & (fs.steps < limit) & (fs.steps < config.max_steps))
+
+
 def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
                rounds_fn=None) -> FusedFrontier:
     """Dispatch fused rounds until nothing is live or ``steps`` reaches
@@ -512,10 +518,22 @@ def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
     tensor on the frontier's device; both limits are compared on the
     device.  One host sync per dispatch reads the loop condition, the
     first before the first dispatch.  ``rounds_fn`` swaps the round
-    kernel (see :func:`_fused_round`)."""
-    while bool(_fused_live(fs).any() & (fs.steps < limit) & (fs.steps < config.max_steps)):
+    kernel (see :func:`_fused_round`).
+
+    Under an open call-scoped recording (``obs.trace.current()``), each
+    condition read is a ``fused.sync`` span and each dispatch's enqueue,
+    from the read's return to the end of :func:`_fused_round`, a
+    ``fused.dispatch`` span; the spans tile the loop.  With none,
+    ``trace.OFF`` reads no clock and records nothing."""
+    rec = trace.current() or trace.OFF
+    t = rec.now()
+    while True:
+        go = _fused_go(fs, config, limit)
+        t = rec.span("fused.sync", "fetch.loop", t)
+        if not go:
+            return fs
         fs = _fused_round(fs, geom, config, rounds_fn)
-    return fs
+        t = rec.span("fused.dispatch", "fused.dispatch", t)
 
 
 def _advance_fused(state, step_limit, geom: Geometry, config):
