@@ -1552,14 +1552,16 @@ def phase_flight(corpus, minrem_nodes, sizes, dev):
     hard = [int(i) for i in np.argsort(-minrem_nodes[len(HARD_9):])[: sizes["flight_extra"]]]
     boards = [(f"HARD_9[{i}]", np.asarray(h, np.int32)) for i, h in enumerate(HARD_9)]
     boards += [(f"corpus[{i + len(HARD_9)}]", corpus[i + len(HARD_9)]) for i in hard]
-    mailbox, _ = _fly(mailbox, boards[0][1], cfg, dev)  # warm-up
+    mailbox, _ = _fly(mailbox, boards[0][1], cfg, dev)  # warm-up, the loop's graph captured
     rows, launches = [], 0
     for name, board in boards:
         torch.cuda.synchronize()
         cuda_step.fused_rounds_cuda.launches = 0
+        built = cuda_step._GRAPHS.built
         t0 = time.perf_counter()
         mailbox, v = _fly(mailbox, board, cfg, dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
+        captures = cuda_step._GRAPHS.built - built
         launches += cuda_step.fused_rounds_cuda.launches
         # The same flight again, its host syncs counted by stage, then the reference.
         syncs = {}
@@ -1573,10 +1575,11 @@ def phase_flight(corpus, minrem_nodes, sizes, dev):
         if v["nodes"] != int(res.nodes[0]) or again["solution"].tolist() != v["solution"].tolist():
             raise AssertionError(f"flight {name}: nodes or a repeated flight differ")
         rows.append(dict(board=name, wall_ms=wall_ms, chunks=v["chunks"], syncs=syncs,
-                         nodes=v["nodes"], solved=v["solved"]))
+                         nodes=v["nodes"], solved=v["solved"], graph_captures=captures))
         log(f"[13] flight {name}: {wall_ms:.3f} ms, chunks {v['chunks']}, host syncs "
             f"{sum(syncs.values())} {json.dumps(syncs)}, nodes {v['nodes']}, steps "
-            f"{v['steps']}, solved {v['solved']}; equals solve_one")
+            f"{v['steps']}, solved {v['solved']}, graph captures in the timed flight "
+            f"{captures}; equals solve_one")
     if launches <= 0:
         raise AssertionError("the flights launched K2 no time")
     return launches, rows
@@ -2084,6 +2087,7 @@ def phase_serving(corpus, minrem_nodes, device, sizes, dev):
         try:
             torch.cuda.synchronize()
             cuda_step.fused_rounds_cuda.launches = 0
+            built = cuda_step._GRAPHS.built
             fetches.clear()
             b16 = [make_puzzle(SUDOKU_16, 100 + i, unique=False).astype(np.int32)
                    for i in range(16)]
@@ -2177,7 +2181,9 @@ def phase_serving(corpus, minrem_nodes, device, sizes, dev):
                     f"{r.get('chunks_per_flight')}, flight wall {r.get('flight_wall_ms')}")
             log(f"[17] node F engine: static chunks {eng.chunk_wall.snapshot()['total']}, "
                 f"dispatch wall {m.get('dispatch_wall_ms')}, sync wall "
-                f"{m.get('sync_wall_ms')}; K2 launches {launches_f}; fallbacks all 0; "
+                f"{m.get('sync_wall_ms')}; K2 launches {launches_f}; fused-loop graphs "
+                f"captured {cuda_step._GRAPHS.built - built}, kept {len(cuda_step._GRAPHS)} "
+                f"(bound {cuda_step._GRAPHS.size}); fallbacks all 0; "
                 f"prometheus clean; /trace analyze served")
             # Host syncs per chunk, one route at a time; their answers are
             # checked as the routes' own are.

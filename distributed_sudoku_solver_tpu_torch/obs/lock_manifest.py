@@ -126,6 +126,10 @@ LOCK_RANKS = {
     # by visible_devices under serving.engine (30) when the engine builds a
     # mesh flight.
     "parallel.mesh": 53,      # parallel/mesh.py _virtual_lock
+    # Port-only: the fused loop's cache of captured graphs, a leaf held only
+    # to claim or release an entry, by _run_fused on a flight's thread (under
+    # serving.megastep, 36, for a latency flight).
+    "ops.fused_graphs": 54,   # ops/cuda_step.py _GraphCache._lock
     "obs.compilewatch": 60,   # obs/compilewatch.py CompileWatch._lock
     "obs.critpath": 62,       # obs/critpath.py CritPathMonitor._lock
     "obs.trace": 64,          # obs/trace.py TraceRecorder._lock
@@ -137,7 +141,7 @@ LOCK_RANKS = {
 }
 
 #: Locks of the port that the JAX package does not have.
-PORT_ONLY_LOCKS = ("ops.cuda_build", "parallel.mesh")
+PORT_ONLY_LOCKS = ("ops.cuda_build", "parallel.mesh", "ops.fused_graphs")
 
 # Blessed edges the rank order alone does not express — each carries its
 # why, so the re-entrancy contracts review rounds kept re-deriving by

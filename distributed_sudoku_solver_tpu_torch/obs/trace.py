@@ -437,8 +437,9 @@ class Recording:
     installed one, if any; with ``keep`` it is also kept, unbounded and in
     order of end, in ``spans`` (with no recorder, a span dict of the schema
     :meth:`TraceRecorder.record` makes, on the wall clock).  ``counts``
-    counts the spans by name, kept or not.  Spans of one name are recorded
-    on one thread (``solve_bulk``'s drain worker has names of its own)."""
+    counts the spans by name, kept or not, and the events of :meth:`count`.
+    Spans of one name are recorded on one thread (``solve_bulk``'s drain
+    worker has names of its own)."""
 
     __slots__ = ("recorder", "trace", "keep", "spans", "counts", "now", "_seq")
 
@@ -474,6 +475,10 @@ class Recording:
             self.spans.append(span)
         return t1
 
+    def count(self, name: str) -> None:
+        """Count one event of ``name`` in ``counts``, recording no span."""
+        self.counts[name] = self.counts.get(name, 0) + 1
+
 
 class _Off:
     """The recording of a call that records nothing: no clock read, no span."""
@@ -487,6 +492,9 @@ class _Off:
 
     def span(self, name: str, site: str, t0: float, **attrs) -> float:
         return 0.0
+
+    def count(self, name: str) -> None:
+        pass
 
 
 OFF = _Off()

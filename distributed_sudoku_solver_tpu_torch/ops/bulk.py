@@ -127,13 +127,16 @@ def solve_bulk(
 
     With ``trace``, the call also writes into it: ``trace_id``, every span
     under ``spans``, ``k2_dispatches`` and ``host_syncs`` (its
-    ``fused.dispatch`` and ``*.sync`` spans), the stage sums ``pack_s``,
-    ``solve_s``, ``drain_s`` and ``first_pass_s`` (the durations of the
-    matching spans), ``remaining_after_first``, and per-rung dicts under
-    ``rungs`` (``wall_s`` the ``bulk.rung`` span's, and the rung's own
-    ``k2_dispatches`` and ``host_syncs``).  With ``inflight`` above 1 the
-    drain of one chunk overlaps the pack and solve of the next, so the
-    three stages can add up to more than ``first_pass_s``.
+    ``fused.dispatch`` and ``*.sync`` spans), ``graph_rounds`` (the
+    dispatches whose bookkeeping was a graph replay: ``fused.graph``
+    counts, 0 on the CPU), the stage sums ``pack_s``, ``solve_s``,
+    ``drain_s`` and ``first_pass_s`` (the durations of the matching
+    spans), ``remaining_after_first``, and per-rung dicts under ``rungs``
+    (``wall_s`` the ``bulk.rung`` span's, and the rung's own
+    ``k2_dispatches``, ``host_syncs`` and ``graph_rounds``).  With
+    ``inflight`` above 1 the drain of one chunk overlaps the pack and solve
+    of the next, so the three stages can add up to more than
+    ``first_pass_s``.
 
     ``faults.fire("bulk.dispatch")`` (``serving/faults.py``) runs before
     each first-pass chunk's pack and before each rung dispatch: an
@@ -167,14 +170,15 @@ def solve_bulk(
 
 
 def _counts(counts, since=None) -> dict:
-    """K2 dispatches and host syncs among a recording's span ``counts`` by
-    name (less those of ``since``, an earlier copy): its ``fused.dispatch``
-    and ``*.sync`` spans."""
+    """K2 dispatches, host syncs and graph rounds among a recording's
+    ``counts`` by name (less those of ``since``, an earlier copy): its
+    ``fused.dispatch`` and ``*.sync`` spans and ``fused.graph`` events."""
     since = since or {}
     n = {name: c - since.get(name, 0) for name, c in counts.items()}
     return {
         "k2_dispatches": n.get("fused.dispatch", 0),
         "host_syncs": sum(c for name, c in n.items() if name.endswith(".sync")),
+        "graph_rounds": n.get("fused.graph", 0),
     }
 
 

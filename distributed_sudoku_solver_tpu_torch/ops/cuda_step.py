@@ -29,10 +29,17 @@ per-tile sweeps), so it is left out of bit-equality with the JAX path.
 :func:`fused_rounds` takes the plain version (:func:`fused_rounds_plain`)
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
 raises.  ``fused_rounds_cuda.launches`` counts kernel launches.
+
+The fused loop (:func:`_run_fused`) dispatches the kernel and then does the
+job bookkeeping between dispatches (harvest, purge, steal, counters).  On
+CUDA tensors that bookkeeping is one replay of a captured CUDA graph a
+dispatch (:class:`_RoundGraph`); the kernel itself is still launched by a
+Python call through :func:`fused_rounds` every dispatch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from typing import NamedTuple
@@ -42,7 +49,7 @@ import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
 from distributed_sudoku_solver_tpu_torch.models.sudoku import SudokuCSP
-from distributed_sudoku_solver_tpu_torch.obs import trace
+from distributed_sudoku_solver_tpu_torch.obs import lockdep, trace
 from distributed_sudoku_solver_tpu_torch.ops import cuda_build, ordering
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import (
     is_single,
@@ -438,26 +445,33 @@ def _fused_live(fs) -> torch.Tensor:
     return fs.has_top & (fs.job >= 0) & ~fs.solved[job_safe]
 
 
-def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None) -> FusedFrontier:
-    """One kernel dispatch (``fused_steps`` rounds) + the job bookkeeping.
-
-    ``rounds_fn`` (FusedFrontier -> the 13-tuple of :func:`fused_rounds`)
+def _round_kernel(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None) -> tuple:
+    """One dispatch of the round kernel on ``fs``: the 13-tuple of
+    :func:`fused_rounds`.  ``rounds_fn`` (FusedFrontier -> the 13-tuple)
     swaps in another round kernel: the exact-cover kernel
     (``ops/cuda_cover.py``) shares harvest, purge and steal this way;
-    ``None`` dispatches the Sudoku kernel on ``geom``."""
+    ``None`` dispatches the Sudoku kernel on ``geom`` through
+    ``fused_rounds``, looked up in this module at call time."""
+    if rounds_fn is not None:
+        return rounds_fn(fs)
+    return fused_rounds(
+        fs.top, fs.stack, fs.has_top, fs.base, fs.count, geom,
+        rules=config.rules, branch_rule=config.branch, max_sweeps=config.max_sweeps,
+        k_steps=config.fused_steps, tile=min(128, fs.has_top.shape[0]),
+        count_mode=config.count_all, sweep_unroll=config.fused_sweep_unroll,
+    )
+
+
+def _fused_bookkeeping(fs: FusedFrontier, out: tuple, config) -> FusedFrontier:
+    """The job bookkeeping after one dispatch whose 13-tuple is ``out``:
+    harvest the solutions, purge the solved jobs' lanes, steal, count.
+    Device ops only, no host read, so that a CUDA graph can capture it."""
     n_jobs = fs.solved.shape[0]
     n_lanes = fs.has_top.shape[0]
     dev = fs.has_top.device
     job_safe = torch.clamp(fs.job, 0, n_jobs - 1).long()
-    if rounds_fn is None:
-        rounds_fn = lambda f: fused_rounds(  # noqa: E731
-            f.top, f.stack, f.has_top, f.base, f.count, geom,
-            rules=config.rules, branch_rule=config.branch, max_sweeps=config.max_sweeps,
-            k_steps=config.fused_steps, tile=min(128, n_lanes),
-            count_mode=config.count_all, sweep_unroll=config.fused_sweep_unroll,
-        )
     (top, stack, has_top, base, count, lane_solved, lane_sol, lane_over, nodes_d,
-     sols_d, liv_d, sweeps_t, steps_m) = rounds_fn(fs)
+     sols_d, liv_d, sweeps_t, steps_m) = out
 
     live_jobs = fs.job >= 0
     lane_ids = torch.arange(n_lanes, dtype=torch.int32, device=dev)
@@ -505,9 +519,192 @@ def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=Non
     )
 
 
-def _fused_go(fs: FusedFrontier, config, limit) -> bool:
-    """The loop condition of :func:`_run_fused`, read on the host (one sync)."""
-    return bool(_fused_live(fs).any() & (fs.steps < limit) & (fs.steps < config.max_steps))
+def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None) -> FusedFrontier:
+    """One kernel dispatch (``fused_steps`` rounds) + the job bookkeeping,
+    eagerly (``rounds_fn``: see :func:`_round_kernel`)."""
+    return _fused_bookkeeping(fs, _round_kernel(fs, geom, config, rounds_fn), config)
+
+
+def _step_limit(limit, max_steps: int):
+    """The one bound on ``steps`` that both of :func:`_run_fused`'s limits
+    make: ``steps < min(limit, max_steps)``, on the device for a tensor
+    ``limit`` (no host read)."""
+    if isinstance(limit, torch.Tensor):
+        return torch.clamp(limit, max=max_steps)
+    return min(int(limit), max_steps)
+
+
+def _fused_go(fs: FusedFrontier, limit) -> torch.Tensor:
+    """The loop condition of :func:`_run_fused`, a 0-d bool tensor: a lane
+    is live and ``steps`` is under ``limit`` (a :func:`_step_limit`)."""
+    return _fused_live(fs).any() & (fs.steps < limit)
+
+
+class _RoundGraph:
+    """One dispatch's bookkeeping and the next loop condition
+    (:func:`_fused_bookkeeping`, :func:`_fused_go`), captured as a CUDA
+    graph over static buffers: ``state``, the frontier between dispatches
+    (the round kernel reads its lanes there), ``kout``, the kernel's
+    13-tuple, ``limit`` and ``go``.  Each replay writes the next frontier
+    into ``state`` and the condition into ``go``.  The round kernel stays
+    outside the graph: it is launched by a Python call each dispatch.
+
+    Captured on the first :meth:`dispatch_round`, after a warm-up run of
+    the chain whose results are dropped, on a side stream, with
+    ``capture_error_mode="thread_local"`` (other threads may copy and
+    launch on the card meanwhile).  A capture that fails raises
+    ``KernelError``."""
+
+    graph = True
+
+    def __init__(self, fs: FusedFrontier):
+        dev = fs.has_top.device
+        self.state = FusedFrontier(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in fs))
+        self.limit = torch.zeros((), dtype=torch.int64, device=dev)
+        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.kout: tuple = ()
+        self.replay = None
+        self.stream = None  # where the last call's reads of ``state`` were enqueued
+
+    def load(self, fs: FusedFrontier, limit) -> None:
+        """Start a call: the caller's frontier and limit into the buffers."""
+        stream = torch.cuda.current_stream(self.go.device)
+        if self.stream is not None and self.stream != stream:
+            stream.wait_stream(self.stream)
+        self.stream = stream
+        torch._foreach_copy_(list(self.state), list(fs))
+        self.limit.fill_(limit)
+
+    def dispatch_round(self, geom: Geometry | None, config, rounds_fn) -> None:
+        """One dispatch: the round kernel on the buffers by a Python call
+        (:func:`_round_kernel`), then the bookkeeping's replay."""
+        out = _round_kernel(self.state, geom, config, rounds_fn)
+        if self.replay is None:
+            self.kout = tuple(o if o is self.state.stack else torch.empty_like(o) for o in out)
+            self._copy_kout(out)
+            self.replay = self._capture(config)
+        else:
+            self._copy_kout(out)
+        self.replay()
+
+    def unload(self, stack: torch.Tensor) -> FusedFrontier:
+        """End a call: fresh tensors of the frontier, which later calls do
+        not write, its stack copied into the caller's ``stack``."""
+        stack.copy_(self.state.stack)
+        return FusedFrontier(*(stack if t is self.state.stack else t.clone() for t in self.state))
+
+    def _copy_kout(self, out: tuple) -> None:
+        pairs = [(k, o) for k, o in zip(self.kout, out) if k is not o]
+        torch._foreach_copy_([k for k, _ in pairs], [o for _, o in pairs])
+
+    def _chain(self, config) -> tuple:
+        new = _fused_bookkeeping(self.state, self.kout, config)
+        return new, _fused_go(new, self.limit)
+
+    def _write(self, new: FusedFrontier, go: torch.Tensor) -> None:
+        pairs = [(s, n) for s, n in zip(self.state, new) if n is not s]
+        torch._foreach_copy_([s for s, _ in pairs] + [self.go], [n for _, n in pairs] + [go])
+
+    def _capture(self, config):
+        """Warm up and capture the chain; returns the graph's replay."""
+        dev = self.go.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(side):
+                self._chain(config)
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                self._write(*self._chain(config))
+        except RuntimeError as e:
+            raise cuda_build.KernelError(f"capturing the fused loop's bookkeeping failed: {e}") from e
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return graph.replay
+
+
+class _EagerRounds:
+    """:class:`_RoundGraph`'s interface over the caller's frontier itself,
+    each dispatch an eager :func:`_fused_round`: the CPU's, where there are
+    no graphs."""
+
+    graph = False
+
+    def load(self, fs: FusedFrontier, limit) -> None:
+        self.state, self.limit = fs, limit
+
+    def dispatch_round(self, geom: Geometry | None, config, rounds_fn) -> None:
+        self.state = _fused_round(self.state, geom, config, rounds_fn)
+        self.go = _fused_go(self.state, self.limit)
+
+    def unload(self, stack: torch.Tensor) -> FusedFrontier:
+        return self.state
+
+
+class _GraphCache:
+    """The captured chains of the process, by key: at most ``size`` idle
+    ones are kept, the least recently used dropped first.  A claimed entry
+    is its caller's alone until the claim ends (a second caller of the same
+    key builds another), and an entry whose claim raised is dropped."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.built = 0  # entries built, each one capture
+        self._lock = lockdep.named_lock("ops.fused_graphs")  # lockck: name(ops.fused_graphs)
+        self._slots: list = []  # [key, entry, claimed], least recently used first
+
+    def __len__(self) -> int:
+        return len(self._slots)
+
+    @contextlib.contextmanager
+    def claim(self, key, build):
+        """Yield an idle entry of ``key``, or a new one from ``build()``."""
+        with self._lock:
+            slot = next((s for s in self._slots if s[0] == key and not s[2]), None)
+            if slot is not None:
+                self._slots.remove(slot)
+                slot[2] = True
+                self._slots.append(slot)
+        if slot is None:
+            slot = [key, build(), True]
+            with self._lock:
+                self._slots.append(slot)
+                self.built += 1
+        ok = False
+        try:
+            yield slot[1]
+            ok = True
+        finally:
+            with self._lock:
+                slot[2] = False
+                if not ok:
+                    self._slots.remove(slot)
+                idle = [s for s in self._slots if not s[2]]
+                for s in idle[: max(0, len(self._slots) - self.size)]:
+                    self._slots.remove(s)
+
+
+# Frontier shapes a process keeps captured.  A bulk pass uses three (the first
+# pass and two rungs).  A serving node uses one a geometry for its resident
+# flight and one for its megastep, and its static flights one a power-of-two
+# job bucket, nine a geometry at max_batch 256: 22 for 9x9 and 16x16 together.
+# An entry holds about twice its frontier (the frontier's and the kernel's
+# outputs' buffers) and the graph's own pool.
+_GRAPHS = _GraphCache(32)
+
+
+def _graph_key(fs: FusedFrontier, config, rounds_fn) -> tuple:
+    """Everything the captured chain reads: the device, the round kernel's
+    family, ``count_all``, ``steal``, ``steal_gang``, and every field's
+    shape (lanes, jobs, stack slots, the board) and dtype."""
+    family = "K2" if rounds_fn is None else f"{rounds_fn.__module__}.{rounds_fn.__qualname__}"
+    return (str(fs.has_top.device), family, bool(config.count_all), bool(config.steal),
+            int(config.steal_gang), tuple((tuple(t.shape), t.dtype) for t in fs))
+
+
+def _replays(fs: FusedFrontier) -> bool:
+    """Whether :func:`_run_fused` replays its bookkeeping from a graph:
+    on CUDA tensors."""
+    return fs.has_top.device.type == "cuda"
 
 
 def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
@@ -518,22 +715,43 @@ def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
     tensor on the frontier's device; both limits are compared on the
     device.  One host sync per dispatch reads the loop condition, the
     first before the first dispatch.  ``rounds_fn`` swaps the round
-    kernel (see :func:`_fused_round`).
+    kernel (see :func:`_round_kernel`).
+
+    Each dispatch launches the round kernel by a Python call, then does
+    the bookkeeping.  On CUDA tensors that is a replay (:class:`_RoundGraph`,
+    one a key of :func:`_graph_key`, kept in ``_GRAPHS``): the call copies
+    ``fs`` into the graph's buffers first and returns fresh tensors, with
+    ``fs.stack`` updated in place.  On the CPU the same bookkeeping runs
+    eagerly (:class:`_EagerRounds`), and a call that dispatches nothing
+    returns ``fs`` itself on either.
 
     Under an open call-scoped recording (``obs.trace.current()``), each
     condition read is a ``fused.sync`` span and each dispatch's enqueue,
-    from the read's return to the end of :func:`_fused_round`, a
-    ``fused.dispatch`` span; the spans tile the loop.  With none,
+    from the read's return to the end of its bookkeeping, a
+    ``fused.dispatch`` span; the spans tile the loop.  A dispatch whose
+    bookkeeping was a replay counts one ``fused.graph``.  With none,
     ``trace.OFF`` reads no clock and records nothing."""
     rec = trace.current() or trace.OFF
     t = rec.now()
-    while True:
-        go = _fused_go(fs, config, limit)
-        t = rec.span("fused.sync", "fetch.loop", t)
-        if not go:
-            return fs
-        fs = _fused_round(fs, geom, config, rounds_fn)
-        t = rec.span("fused.dispatch", "fused.dispatch", t)
+    limit = _step_limit(limit, config.max_steps)
+    go = bool(_fused_go(fs, limit))
+    t = rec.span("fused.sync", "fetch.loop", t)
+    if not go:
+        return fs
+    if _replays(fs):
+        rounds = _GRAPHS.claim(_graph_key(fs, config, rounds_fn), lambda: _RoundGraph(fs))
+    else:
+        rounds = contextlib.nullcontext(_EagerRounds())
+    with rounds as g:
+        g.load(fs, limit)
+        while go:
+            g.dispatch_round(geom, config, rounds_fn)
+            if g.graph:
+                rec.count("fused.graph")
+            t = rec.span("fused.dispatch", "fused.dispatch", t)
+            go = bool(g.go)
+            t = rec.span("fused.sync", "fetch.loop", t)
+        return g.unload(fs.stack)
 
 
 def _advance_fused(state, step_limit, geom: Geometry, config):

@@ -1,10 +1,10 @@
 """The benchmark's readers of ``solve_bulk``'s spans and counts.
 
-``k2_dispatches_per_pass.bulk``, ``host_syncs_per_pass.bulk`` and
-``dispatch_idle_pct.bulk`` (``portbench/metrics/``), loaded by name as the
-harness loads them, are fed synthetic passes and a synthetic profile whose
-idle time inside and outside the fused loop's spans is known, then the
-trace of a real pass on the CPU.
+``k2_dispatches_per_pass.bulk``, ``host_syncs_per_pass.bulk``,
+``dispatch_idle_pct.bulk`` and ``fused_graph_pct.bulk``
+(``portbench/metrics/``), loaded by name as the harness loads them, are fed
+synthetic passes and a synthetic profile whose idle time inside and outside
+the fused loop's spans is known, then the trace of a real pass on the CPU.
 """
 
 import numpy as np
@@ -15,7 +15,8 @@ from distributed_sudoku_solver_tpu_torch.ops.bulk import BulkConfig, solve_bulk
 from distributed_sudoku_solver_tpu_torch.utils.puzzles import make_puzzle
 from portbench import core
 
-READERS = ("k2_dispatches_per_pass.bulk", "host_syncs_per_pass.bulk", "dispatch_idle_pct.bulk")
+READERS = ("k2_dispatches_per_pass.bulk", "host_syncs_per_pass.bulk", "dispatch_idle_pct.bulk",
+           "fused_graph_pct.bulk")
 T = 1000.0  # a span clock whose ns are exact in a float
 NS = 10**9
 
@@ -70,6 +71,19 @@ def test_dispatch_idle_needs_a_profile_and_loop_spans():
     assert read({"bulk_traces": TRACES, "profile": {**PROFILE, "device": []}}) == 56.25
 
 
+def test_fused_graph_share_sums_over_passes():
+    """Graph rounds over K2 dispatches, summed over the passes that count
+    graph rounds; None where none does, or where nothing was dispatched."""
+    read = core.reader("fused_graph_pct.bulk")
+    traces = [{"k2_dispatches": 300, "graph_rounds": 300},
+              {"k2_dispatches": 100, "graph_rounds": 0}]
+    assert read({"bulk_traces": traces}) == 75.0
+    assert read({"bulk_traces": traces + TRACES}) == 75.0
+    assert read({"bulk_traces": TRACES}) is None
+    assert read({"bulk_traces": [{"k2_dispatches": 0, "graph_rounds": 0}]}) is None
+    assert read({}) is None
+
+
 def test_dispatch_idle_interval_arithmetic():
     mod = core.reader("dispatch_idle_pct.bulk").__globals__
     busy = [[1, 2], [4, 6], [9, 20]]
@@ -90,6 +104,8 @@ def test_readers_on_a_real_pass():
     r = {"bulk_traces": [tr], "profile": {"window_s": 10.0, "busy_s": 0.0, "device": []}}
     assert core.reader("k2_dispatches_per_pass.bulk")(r) == tr["k2_dispatches"] > 0
     assert core.reader("host_syncs_per_pass.bulk")(r) == tr["host_syncs"] > tr["k2_dispatches"]
+    # The CPU runs the bookkeeping eagerly: no dispatch is a graph round.
+    assert tr["graph_rounds"] == 0 and core.reader("fused_graph_pct.bulk")(r) == 0.0
     loop = [s["t1"] - s["t0"] for s in tr["spans"]
             if s["name"] in ("fused.dispatch", "fused.sync")]
     # In ns an epoch-clock float is good to 256 ns, so each span to 512 ns.
