@@ -162,6 +162,7 @@ SYNC_SCOPED_FILES = (
     "serving/engine.py",
     "serving/scheduler.py",
     "ops/bulk.py",
+    "ops/solve.py",
     "serving/portfolio.py",
     "serving/megastep.py",
     "serving/mesh_scheduler.py",

@@ -33,6 +33,7 @@ import torch
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
 from distributed_sudoku_solver_tpu_torch.obs import trace as trace_mod
 from distributed_sudoku_solver_tpu_torch.ops import wire
+from distributed_sudoku_solver_tpu_torch.ops.cuda_step import loop_counts
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     FUSED_STEPS_LINKED,
     SolverConfig,
@@ -154,7 +155,7 @@ def solve_bulk(
     with trace_mod.recording(keep=trace is not None) as rec:
         t0 = rec.now()
         res, info = _solve_bulk(grids, geom, config, mesh, device, rec)
-        counts = _counts(rec.counts)
+        counts = loop_counts(rec.counts, "k2_dispatches")
         rec.span("bulk.pass", "bulk.pass", t0, boards=len(res.solved), chunks=info["chunks"],
                  **counts)
     if trace is not None:
@@ -167,19 +168,6 @@ def solve_bulk(
                           ("drain_s", "bulk.drain"), ("first_pass_s", "bulk.first_pass")):
             trace[key] = sum(s["t1"] - s["t0"] for s in spans if s["name"] == name)
     return res
-
-
-def _counts(counts, since=None) -> dict:
-    """K2 dispatches, host syncs and graph rounds among a recording's
-    ``counts`` by name (less those of ``since``, an earlier copy): its
-    ``fused.dispatch`` and ``*.sync`` spans and ``fused.graph`` events."""
-    since = since or {}
-    n = {name: c - since.get(name, 0) for name, c in counts.items()}
-    return {
-        "k2_dispatches": n.get("fused.dispatch", 0),
-        "host_syncs": sum(c for name, c in n.items() if name.endswith(".sync")),
-        "graph_rounds": n.get("fused.graph", 0),
-    }
 
 
 def _solve_bulk(grids, geom: Geometry, config: BulkConfig, mesh, device, rec):
@@ -388,7 +376,7 @@ def _solve_bulk(grids, geom: Geometry, config: BulkConfig, mesh, device, rec):
             "dispatches": dispatches[0],
             "survivors_in": len(remaining),
             "survivors_out": len(still),
-            **_counts(rec.counts, mark),
+            **loop_counts(rec.counts, "k2_dispatches", mark),
         }
         t_end = rec.span("bulk.rung", "bulk.rung", t_rung, **fields)
         info["rungs"].append({"wall_s": t_end - t_rung, **fields})

@@ -39,8 +39,9 @@ import torch
 from distributed_sudoku_solver_tpu_torch.models.cover import ExactCoverCSP
 from distributed_sudoku_solver_tpu_torch.ops import cuda_build
 from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
-    _kernel_outputs,
+    _out_buffers,
     _plain_rounds,
+    _round_outputs,
     _run_fused,
     frontier_to_fused,
     fused_to_frontier,
@@ -171,7 +172,7 @@ def _lib(variant: str = ""):
 
 
 def _launch(variant, top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
-            count_mode):
+            count_mode, out=None):
     _check_round_inputs(top, stack, has_top, base, count, problem)
     for name, v in (("top", top), ("stack", stack), ("has_top", has_top),
                     ("base", base), ("count", count)):
@@ -179,13 +180,14 @@ def _launch(variant, top, stack, has_top, base, count, problem, max_sweeps, k_st
             raise ValueError(f"cover_fused_rounds_cuda needs CUDA tensors; {name} is on {v.device}")
     return _call(_lib(variant).dsst_cover_rounds, torch.cuda.current_stream(top.device).cuda_stream,
                  top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
-                 count_mode)
+                 count_mode, out)
 
 
 def _call(fn, stream, top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
-          count_mode):
+          count_mode, out=None):
     """Marshal the arguments of ``dsst_cover_rounds`` (csrc/cover.cu) from
-    tensors on one device, call ``fn`` with them and build the 13-tuple."""
+    tensors on one device, call ``fn`` with them and build the 13-tuple
+    (with ``out``, the :class:`~.cuda_step.KernelOut` in its buffers)."""
     if not (top.is_contiguous() and stack.is_contiguous()):
         raise ValueError("cover_fused_rounds_cuda needs contiguous top and stack")
     if not (0 <= k_steps < 2**31 and 0 <= max_sweeps < 2**31):
@@ -197,9 +199,7 @@ def _call(fn, stream, top, stack, has_top, base, count, problem, max_sweeps, k_s
     has_i = has_top.to(torch.int32).contiguous()
     base_i = base.to(torch.int32).contiguous()
     count_i = count.to(torch.int32).contiguous()
-    top_out = torch.empty_like(top)
-    sol = torch.empty_like(top)
-    lane_out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
+    top_out, sol, lane_out = _out_buffers(top, out)
     scratch = None if shape.shared_private else torch.empty(
         (lanes, private_words(problem)), dtype=torch.int32, device=dev)
     row_list = consts["row_list"]
@@ -211,18 +211,21 @@ def _call(fn, stream, top, stack, has_top, base, count, problem, max_sweeps, k_s
              max_sweeps, k_steps, int(count_mode), shape.warps, int(shape.stage),
              shape.smem_bytes, stream)
     cuda_build.check(err, "dsst_cover_rounds")
-    return _kernel_outputs(top_out, stack, base_i, sol, lane_out, tile, words=problem.w_rows)
+    return _round_outputs(top_out, stack, base_i, sol, lane_out, tile, problem.w_rows, out)
 
 
 def cover_fused_rounds_cuda(
     top, stack, has_top, base, count, problem: ExactCoverCSP, max_sweeps: int = 64,
-    k_steps: int = 8, tile: int = 128, count_mode: bool = False,
+    k_steps: int = 8, tile: int = 128, count_mode: bool = False, out=None,
 ):
-    """Launch K3 on CUDA tensors (no host sync); same returns as the plain version."""
-    out = _launch("", top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
-                  count_mode)
+    """Launch K3 on CUDA tensors (no host sync); same returns as the plain
+    version.  With ``out`` (three buffers: tops, solutions, ``lane_out``)
+    the kernel writes its own outputs there and the call returns them as a
+    ``KernelOut`` (``ops/cuda_step.fused_rounds_cuda``)."""
+    res = _launch("", top, stack, has_top, base, count, problem, max_sweeps, k_steps, tile,
+                  count_mode, out)
     cover_fused_rounds_cuda.launches += 1
-    return out
+    return res
 
 
 def cover_fused_rounds_stage_cycles(top, stack, has_top, base, count, problem: ExactCoverCSP,
@@ -264,11 +267,11 @@ def cover_fused_rounds(top, stack, has_top, base, count, problem: ExactCoverCSP,
 
 
 def _rounds_fn(problem: ExactCoverCSP, config, lanes: int):
-    def rounds(f):
+    def rounds(f, **kw):
         return cover_fused_rounds(
             f.top, f.stack, f.has_top, f.base, f.count, problem,
             max_sweeps=config.max_sweeps, k_steps=config.fused_steps,
-            tile=min(128, lanes), count_mode=config.count_all,
+            tile=min(128, lanes), count_mode=config.count_all, **kw,
         )
 
     return rounds
@@ -297,11 +300,10 @@ def advance_cover_fused(state, step_limit, problem: ExactCoverCSP, config):
     return fused_to_frontier(fs)
 
 
-def solve_cover_fused(states0: torch.Tensor, problem: ExactCoverCSP, config):
-    """Fused-step cover solve: ``solve_csp``'s contract under fused rounds.
-    Root states ``[J, 1, D]``; the solution is the raw solved state."""
-    from distributed_sudoku_solver_tpu_torch.ops.solve import finalize_frontier
-
+def cover_fused_frontier(states0: torch.Tensor, problem: ExactCoverCSP, config):
+    """Fused-step cover solve from root states ``[J, 1, D]``: the final
+    lane-first ``Frontier``, which ``ops.solve.finalize_frontier`` turns
+    into ``solve_csp``'s result (the solution is the raw solved state)."""
     config = config.with_fused_steps(FUSED_STEPS_LINKED)
     launch_shape(problem)  # an instance K3 cannot take raises before the first dispatch
     lanes = cover_fused_lanes(config.resolve_lanes(states0.shape[0]))
@@ -309,4 +311,4 @@ def solve_cover_fused(states0: torch.Tensor, problem: ExactCoverCSP, config):
     state = init_frontier(states0, config)
     fs = _run_fused(frontier_to_fused(state), None, config, config.max_steps,
                     rounds_fn=_rounds_fn(problem, config, lanes))
-    return finalize_frontier(fused_to_frontier(fs))
+    return fused_to_frontier(fs)

@@ -111,11 +111,11 @@ def _tile_clear(top: torch.Tensor, live_rounds: torch.Tensor, tile: int,
     t = min(tile, lanes)
     if lanes % t:
         raise ValueError(f"lanes {lanes} not a multiple of tile {t}")
-    tile_max = live_rounds.reshape(-1, t).amax(1).repeat_interleave(t)
-    dead = (live_rounds < tile_max).reshape(-1, *([1] * (top.ndim - 1)))
-    if words is not None:
-        dead = dead & (torch.arange(top.shape[-1], device=top.device) < words)
-    return torch.where(dead, torch.zeros_like(top), top)
+    per_tile = live_rounds.reshape(-1, t)
+    dead = (per_tile < per_tile.amax(1, keepdim=True)).reshape(-1, *([1] * (top.ndim - 1)))
+    if words is None:
+        return top.masked_fill(dead, 0)
+    return torch.cat([top[..., :words].masked_fill(dead, 0), top[..., words:]], dim=-1)
 
 
 def status_full(cand: torch.Tensor, geom: Geometry) -> tuple[torch.Tensor, torch.Tensor]:
@@ -182,23 +182,59 @@ def _plain_rounds(top, stack, has_top, base, count, propagate, status, branch,
         if not count_mode:
             has = has & ~top_solved
         count = count + can_push.to(torch.int32) - can_pop.to(torch.int32)
-    steps_max = live_r.max() if lanes else torch.zeros((), dtype=torch.int32, device=dev)
-    return (
-        _tile_clear(top, live_r, tile, words), stack, has, base, count, solved_f, sol, over_f,
-        nodes, sols, live_r, sweeps.sum(dtype=torch.int32), steps_max.to(torch.int32),
-    )
+    lane_out = torch.stack([has.to(torch.int32), count, solved_f.to(torch.int32),
+                            over_f.to(torch.int32), nodes, sols, live_r, sweeps])
+    return _kernel_outputs(top, stack, base, sol, lane_out, tile, words)
+
+
+class KernelOut(NamedTuple):
+    """A round's own outputs, in the buffers a caller passed as ``out``:
+    the lanes' tops before the tile clear, their first solutions and the
+    eight rows of ``lane_out``; ``tile`` and ``words`` are what
+    :func:`_kernel_outputs` takes to make the 13-tuple of them."""
+
+    top: torch.Tensor
+    sol: torch.Tensor
+    lane_out: torch.Tensor
+    tile: int
+    words: int | None
+
+
+def _out_buffers(top: torch.Tensor, out=None) -> tuple:
+    """The buffers a round writes its own outputs into: ``out`` (the
+    tops, the solutions and ``lane_out``), checked against ``top``'s lanes,
+    or new ones."""
+    want = ((top.shape, top.dtype), (top.shape, top.dtype),
+            ((8, top.shape[0]), torch.int32))
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dtype, device=top.device) for shape, dtype in want)
+    for buf, (shape, dtype) in zip(out, want):
+        if (buf.shape != shape or buf.dtype != dtype or buf.device != top.device
+                or not buf.is_contiguous()):
+            raise ValueError(f"out buffer {tuple(buf.shape)} {buf.dtype} on {buf.device} "
+                             f"does not fit {tuple(shape)} {dtype} on {top.device}")
+    return tuple(out)
+
+
+def _round_outputs(top, stack, base, sol, lane_out, tile: int, words, out):
+    """A kernel's returns: the 13-tuple (:func:`_kernel_outputs`), or with
+    ``out`` (where the kernel wrote its own outputs) a :class:`KernelOut`."""
+    if out is None:
+        return _kernel_outputs(top, stack, base, sol, lane_out, tile, words)
+    return KernelOut(*out, tile, words)
 
 
 def _kernel_outputs(top_out, stack, base, sol, lane_out, tile: int, words: int | None = None):
-    """The 13-tuple from a round kernel's outputs.  ``lane_out`` rows (the
+    """The 13-tuple from a round's own outputs.  ``lane_out`` rows (the
     layout both K2 and K3 write): has, count, solved, overflow, nodes,
     sols, live rounds, sweeps."""
-    has, cnt, solved, over, nodes, sols, live, sweeps = lane_out.unbind(0)
+    _, cnt, _, _, nodes, sols, live, sweeps = lane_out.unbind(0)
+    has, _, solved, over = (lane_out[:4] > 0).unbind(0)
     steps_max = live.max() if live.numel() else torch.zeros(
         (), dtype=torch.int32, device=live.device)
     return (
-        _tile_clear(top_out, live, tile, words), stack, has > 0, base.clone(), cnt, solved > 0,
-        sol, over > 0, nodes, sols, live, sweeps.sum(dtype=torch.int32), steps_max,
+        _tile_clear(top_out, live, tile, words), stack, has, base.clone(), cnt, solved,
+        sol, over, nodes, sols, live, sweeps.sum(dtype=torch.int32), steps_max,
     )
 
 
@@ -278,7 +314,7 @@ def _lib(variant: str = ""):
 
 
 def _launch(variant, top, stack, has_top, base, count, geom, rules, branch_rule, max_sweeps,
-            k_steps, tile, count_mode, sweep_unroll):
+            k_steps, tile, count_mode, sweep_unroll, out=None):
     _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_rule)
     for name, v in (("top", top), ("stack", stack), ("has_top", has_top),
                     ("base", base), ("count", count)):
@@ -294,9 +330,7 @@ def _launch(variant, top, stack, has_top, base, count, geom, rules, branch_rule,
     has_i = has_top.to(torch.int32).contiguous()
     base_i = base.to(torch.int32).contiguous()
     count_i = count.to(torch.int32).contiguous()
-    top_out = torch.empty_like(top)
-    sol = torch.empty_like(top)
-    lane_out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
+    top_out, sol, lane_out = _out_buffers(top, out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     params = head_params(branch_rule, geom)  # host memory, copied at the launch
     err = lib.dsst_fused_rounds(
@@ -306,19 +340,23 @@ def _launch(variant, top, stack, has_top, base, count, geom, rules, branch_rule,
         max_sweeps, k_steps, int(count_mode), sweep_unroll,
         None if params is None else params.ctypes.data, stream)
     cuda_build.check(err, "dsst_fused_rounds")
-    return _kernel_outputs(top_out, stack, base_i, sol, lane_out, tile)
+    return _round_outputs(top_out, stack, base_i, sol, lane_out, tile, None, out)
 
 
 def fused_rounds_cuda(
     top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
     branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
-    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2,
+    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2, out=None,
 ):
-    """Launch K2 on CUDA tensors (no host sync); same returns as the plain version."""
-    out = _launch("", top, stack, has_top, base, count, geom, rules, branch_rule,
-                  max_sweeps, k_steps, tile, count_mode, sweep_unroll)
+    """Launch K2 on CUDA tensors (no host sync); same returns as the plain
+    version.  With ``out`` (three buffers: tops, solutions, ``lane_out``)
+    the kernel writes its own outputs there and the call returns them as a
+    :class:`KernelOut`, for a caller that makes the 13-tuple later
+    (:class:`_RoundGraph`, inside its graph)."""
+    res = _launch("", top, stack, has_top, base, count, geom, rules, branch_rule,
+                  max_sweeps, k_steps, tile, count_mode, sweep_unroll, out)
     fused_rounds_cuda.launches += 1
-    return out
+    return res
 
 
 def fused_rounds_stage_cycles(
@@ -445,20 +483,23 @@ def _fused_live(fs) -> torch.Tensor:
     return fs.has_top & (fs.job >= 0) & ~fs.solved[job_safe]
 
 
-def _round_kernel(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None) -> tuple:
+def _round_kernel(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None,
+                  out=None) -> tuple:
     """One dispatch of the round kernel on ``fs``: the 13-tuple of
-    :func:`fused_rounds`.  ``rounds_fn`` (FusedFrontier -> the 13-tuple)
-    swaps in another round kernel: the exact-cover kernel
-    (``ops/cuda_cover.py``) shares harvest, purge and steal this way;
-    ``None`` dispatches the Sudoku kernel on ``geom`` through
-    ``fused_rounds``, looked up in this module at call time."""
+    :func:`fused_rounds`, or with ``out`` its :class:`KernelOut`.
+    ``rounds_fn`` (FusedFrontier, ``out=`` -> the same) swaps in another
+    round kernel: the exact-cover kernel (``ops/cuda_cover.py``) shares
+    harvest, purge and steal this way; ``None`` dispatches the Sudoku
+    kernel on ``geom`` through ``fused_rounds``, looked up in this module
+    at call time."""
+    kw = {} if out is None else {"out": out}
     if rounds_fn is not None:
-        return rounds_fn(fs)
+        return rounds_fn(fs, **kw)
     return fused_rounds(
         fs.top, fs.stack, fs.has_top, fs.base, fs.count, geom,
         rules=config.rules, branch_rule=config.branch, max_sweeps=config.max_sweeps,
         k_steps=config.fused_steps, tile=min(128, fs.has_top.shape[0]),
-        count_mode=config.count_all, sweep_unroll=config.fused_sweep_unroll,
+        count_mode=config.count_all, sweep_unroll=config.fused_sweep_unroll, **kw,
     )
 
 
@@ -541,13 +582,15 @@ def _fused_go(fs: FusedFrontier, limit) -> torch.Tensor:
 
 
 class _RoundGraph:
-    """One dispatch's bookkeeping and the next loop condition
-    (:func:`_fused_bookkeeping`, :func:`_fused_go`), captured as a CUDA
-    graph over static buffers: ``state``, the frontier between dispatches
-    (the round kernel reads its lanes there), ``kout``, the kernel's
-    13-tuple, ``limit`` and ``go``.  Each replay writes the next frontier
-    into ``state`` and the condition into ``go``.  The round kernel stays
-    outside the graph: it is launched by a Python call each dispatch.
+    """One dispatch's post-processing, bookkeeping and the next loop
+    condition (:func:`_kernel_outputs`, :func:`_fused_bookkeeping`,
+    :func:`_fused_go`), captured as a CUDA graph over static buffers:
+    ``state``, the frontier between dispatches (the round kernel reads its
+    lanes there), ``kout``, the kernel's own outputs (a :class:`KernelOut`,
+    which the kernel writes each dispatch), ``limit`` and ``go``.  Each
+    replay writes the next frontier into ``state`` and the condition into
+    ``go``.  The round kernel stays outside the graph: it is launched by a
+    Python call each dispatch.
 
     Captured on the first :meth:`dispatch_round`, after a warm-up run of
     the chain whose results are dropped, on a side stream, with
@@ -562,7 +605,7 @@ class _RoundGraph:
         self.state = FusedFrontier(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in fs))
         self.limit = torch.zeros((), dtype=torch.int64, device=dev)
         self.go = torch.zeros((), dtype=torch.bool, device=dev)
-        self.kout: tuple = ()
+        self.kout: KernelOut | None = None
         self.replay = None
         self.stream = None  # where the last call's reads of ``state`` were enqueued
 
@@ -577,14 +620,13 @@ class _RoundGraph:
 
     def dispatch_round(self, geom: Geometry | None, config, rounds_fn) -> None:
         """One dispatch: the round kernel on the buffers by a Python call
-        (:func:`_round_kernel`), then the bookkeeping's replay."""
-        out = _round_kernel(self.state, geom, config, rounds_fn)
+        (:func:`_round_kernel`), writing into ``kout``, then the replay."""
         if self.replay is None:
-            self.kout = tuple(o if o is self.state.stack else torch.empty_like(o) for o in out)
-            self._copy_kout(out)
+            self.kout = _round_kernel(self.state, geom, config, rounds_fn,
+                                      out=_out_buffers(self.state.top))
             self.replay = self._capture(config)
         else:
-            self._copy_kout(out)
+            _round_kernel(self.state, geom, config, rounds_fn, out=self.kout[:3])
         self.replay()
 
     def unload(self, stack: torch.Tensor) -> FusedFrontier:
@@ -593,12 +635,11 @@ class _RoundGraph:
         stack.copy_(self.state.stack)
         return FusedFrontier(*(stack if t is self.state.stack else t.clone() for t in self.state))
 
-    def _copy_kout(self, out: tuple) -> None:
-        pairs = [(k, o) for k, o in zip(self.kout, out) if k is not o]
-        torch._foreach_copy_([k for k, _ in pairs], [o for _, o in pairs])
-
     def _chain(self, config) -> tuple:
-        new = _fused_bookkeeping(self.state, self.kout, config)
+        k = self.kout
+        out = _kernel_outputs(k.top, self.state.stack, self.state.base, k.sol, k.lane_out,
+                              k.tile, k.words)
+        new = _fused_bookkeeping(self.state, out, config)
         return new, _fused_go(new, self.limit)
 
     def _write(self, new: FusedFrontier, go: torch.Tensor) -> None:
@@ -752,6 +793,21 @@ def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
             go = bool(g.go)
             t = rec.span("fused.sync", "fetch.loop", t)
         return g.unload(fs.stack)
+
+
+def loop_counts(counts, dispatches: str, since=None) -> dict:
+    """Round-kernel dispatches, host syncs and graph rounds among a
+    recording's ``counts`` by name (less those of ``since``, an earlier
+    copy): its ``fused.dispatch`` spans under the key ``dispatches``
+    (``"k2_dispatches"``, ``"k3_dispatches"``), its ``*.sync`` spans as
+    ``host_syncs`` and its ``fused.graph`` events as ``graph_rounds``."""
+    since = since or {}
+    n = {name: c - since.get(name, 0) for name, c in counts.items()}
+    return {
+        dispatches: n.get("fused.dispatch", 0),
+        "host_syncs": sum(c for name, c in n.items() if name.endswith(".sync")),
+        "graph_rounds": n.get("fused.graph", 0),
+    }
 
 
 def _advance_fused(state, step_limit, geom: Geometry, config):

@@ -8,13 +8,14 @@ absent unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
 from distributed_sudoku_solver_tpu_torch.models.sudoku import SudokuCSP
+from distributed_sudoku_solver_tpu_torch.obs import trace as trace_mod
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import decode_grid, encode_grid
 from distributed_sudoku_solver_tpu_torch.ops.csp import CSProblem
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
@@ -99,6 +100,7 @@ def sudoku_csp(geom: Geometry, config: SolverConfig) -> SudokuCSP:
 def _as_tensor(x, device: torch.device, dtype=torch.int32) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
+    # syncck: allow(caller input coercion: not a tensor, so host data)
     a = np.asarray(x)
     if a.dtype == np.uint32 and dtype == torch.int32:
         a = a.view(np.int32)  # bit patterns (e.g. the JAX package's states)
@@ -106,30 +108,76 @@ def _as_tensor(x, device: torch.device, dtype=torch.int32) -> torch.Tensor:
 
 
 def solve_csp(
-    states0, problem: CSProblem, config: SolverConfig = SolverConfig(), device=None
+    states0, problem: CSProblem, config: SolverConfig = SolverConfig(), device=None,
+    trace: Optional[dict] = None,
 ) -> SolveResult:
     """Solve root states [J, h, w] of a CSP; the solution is the raw solved state.
 
     ``step_impl='fused'`` serves the exact-cover family through its round
     kernel (``ops/cuda_cover.py``); Sudoku batches take it through
-    :func:`solve_batch`, and any other family raises."""
+    :func:`solve_batch`, and any other family raises.
+
+    Each call with ``trace`` (a dict), or under an installed ``obs.trace``
+    recorder, opens one call-scoped recording (``obs.trace.recording``),
+    as ``ops/bulk.solve_bulk`` does: the fused loop's ``fused.dispatch`` /
+    ``fused.sync`` spans, and ``cover.solve`` around the call.  Its
+    attributes: ``k3_dispatches``, ``host_syncs`` and ``graph_rounds``
+    (``ops/cuda_step.loop_counts``; no dispatch on the composite path) and
+    ``lanes``; with ``trace`` also what only the device holds, read in one
+    fetch after the last dispatch: ``steps``, ``live_lane_rounds`` (the
+    frontier's ``lane_rounds`` summed), ``nodes``, ``steals`` and
+    ``solutions`` (``sol_count`` summed).  With ``trace`` the call writes
+    the same keys into it, with ``trace_id``, ``spans`` and ``solve_s``
+    (the ``cover.solve`` span's duration).  With neither, nothing is
+    recorded and nothing more is read from the device."""
+    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import loop_counts
+
     dev = resolve_device(device)
     states0 = _as_tensor(states0, dev)
+    with trace_mod.recording(keep=trace is not None) as rec:
+        t0 = rec.now()
+        state = _csp_frontier(states0, problem, config)
+        res = finalize_frontier(state)
+        attrs = {**loop_counts(rec.counts, "k3_dispatches"), "lanes": state.has_top.shape[0]}
+        if trace is not None:
+            attrs.update(_device_counts(state, res))
+        t1 = rec.span("cover.solve", "cover.solve", t0, **attrs)
+    if trace is not None:
+        trace.update(attrs)
+        trace["trace_id"] = rec.trace
+        trace["spans"] = list(rec.spans)
+        trace["solve_s"] = t1 - t0
+    return res
+
+
+def _csp_frontier(states0: torch.Tensor, problem: CSProblem, config: SolverConfig) -> Frontier:
+    """:func:`solve_csp`'s search: the final frontier."""
     if config.step_impl == "fused":
         from distributed_sudoku_solver_tpu_torch.models.cover import ExactCoverCSP
 
         if isinstance(problem, ExactCoverCSP):
-            from distributed_sudoku_solver_tpu_torch.ops.cuda_cover import solve_cover_fused
+            from distributed_sudoku_solver_tpu_torch.ops.cuda_cover import cover_fused_frontier
 
-            return solve_cover_fused(states0, problem, config)
+            return cover_fused_frontier(states0, problem, config)
         # No fused kernel for other families; a silent composite fallback
         # would mislabel what ran.
         raise ValueError(
             "step_impl='fused' supports the Sudoku and exact-cover families only; "
             f"got a generic {type(problem).__name__}"
         )
-    state = init_frontier(states0, config)
-    return finalize_frontier(run_frontier(state, problem, config))
+    return run_frontier(init_frontier(states0, config), problem, config)
+
+
+def _device_counts(state: Frontier, res: SolveResult) -> dict:
+    """The ``cover.solve`` attributes that only the device holds, in one fetch."""
+    keys = ("steps", "live_lane_rounds", "nodes", "steals", "solutions")
+    values = torch.stack([
+        res.steps.to(torch.int64), state.lane_rounds.sum(dtype=torch.int64),
+        res.nodes.sum(dtype=torch.int64), res.steals.to(torch.int64),
+        res.sol_count.sum(dtype=torch.int64),
+    ])
+    # syncck: allow(trace-only read: one fetch after the loop, for a kept recording only)
+    return dict(zip(keys, values.tolist()))
 
 
 def solve_batch(
@@ -175,7 +223,9 @@ def solve_batch_wire(
 
 def solve_one(grid, geom: Geometry, config: SolverConfig = SolverConfig(), device=None):
     """Solve a single board; returns (np solution | None, SolveResult)."""
+    # syncck: allow(caller input: a host grid, not a tensor)
     res = solve_batch(np.asarray(grid)[None], geom, config, device=device)
     solved = bool(res.solved[0])
+    # syncck: allow(the one board's answer, fetched once after its solve)
     sol = res.solution[0].cpu().numpy() if solved else None
     return sol, res

@@ -196,14 +196,40 @@ class _Stream:
         pass
 
 
+def _writing_into_out(plain):
+    """A round function that takes the kernels' ``out=`` (the graph hands
+    it three buffers to write): the plain version's returns written there
+    in the kernels' layout, as a ``KernelOut``.  Its top is already tile
+    cleared (a second clear changes nothing) and its sweeps are summed, so
+    lane 0 holds them all; the plain version updates the stack in place."""
+
+    def rounds(top, stack, has_top, base, count, family, out=None, **kw):
+        res = plain(top, stack, has_top, base, count, family, **kw)
+        if out is None:
+            return res
+        sweeps = torch.zeros_like(res[10])
+        sweeps[0] = res[11]
+        out[0].copy_(res[0])
+        out[1].copy_(res[6])
+        out[2].copy_(torch.stack([res[2].to(torch.int32), res[4], res[5].to(torch.int32),
+                                  res[7].to(torch.int32), res[8], res[9], res[10], sweeps]))
+        return cuda_step.KernelOut(*out, kw["tile"], getattr(family, "w_rows", None))
+
+    return rounds
+
+
 @pytest.fixture
 def stub_graphs(monkeypatch):
-    """A cache of its own, and a capture whose replay runs the captured
-    chain eagerly (the CPU has no graphs); ``_run_fused`` still takes the
-    eager path until a test sets ``cuda_step._replays``."""
+    """A cache of its own, a capture whose replay runs the captured chain
+    eagerly (the CPU has no graphs) and round functions that write into the
+    graph's buffers as the kernels do; ``_run_fused`` still takes the eager
+    path until a test sets ``cuda_step._replays``."""
     cache = cuda_step._GraphCache(8)
     monkeypatch.setattr(cuda_step, "_GRAPHS", cache)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    monkeypatch.setattr(cuda_step, "fused_rounds", _writing_into_out(cuda_step.fused_rounds))
+    monkeypatch.setattr(cuda_cover, "cover_fused_rounds",
+                        _writing_into_out(cuda_cover.cover_fused_rounds))
 
     def capture(self, config):
         return lambda: self._write(*self._chain(config))
