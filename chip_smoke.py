@@ -22,10 +22,11 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
 1. print the card's name, the device count and ``nvidia-smi``'s name and
    power limit;
 2. build the kernels from ``distributed_sudoku_solver_tpu_torch/csrc``
-   (one ``nvcc`` per library, started together: K1, K2, K3, the two probe
-   kernels P16 and PCV, and K2's and K3's counter builds; in the full run
-   and under ``--compile`` phase 21 has built them: its nodes K1's and
-   K2's libraries at first use, the smoke the other five) and print, per
+   (one ``nvcc`` per library, started together: K1, K2, K3, the fused
+   loop's bookkeeping kernel, the two probe kernels P16 and PCV, and K2's
+   and K3's counter builds; in the full run and under ``--compile`` phase
+   21 has built them: its nodes K1's, K2's and the bookkeeping's libraries
+   at first use, the smoke the other five) and print, per
    kernel instantiation (K1 and K2 are templates on the box shape, K3 on
    the instance's row and covered words, P16 on the mask bits, PCV on the
    row words), ptxas's registers, spills and stack frame and the warps an
@@ -45,7 +46,9 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
    each stage's share of the warps' ``clock64()`` cycles (the breakdown);
 6. the main path, ``solve_bulk(corpus, SUDOKU_9, BulkConfig())`` twice
    (``inflight=3``): every solution valid and agreeing with its givens, no
-   board unsat, K2's launch count above zero; boards/s of the second pass
+   board unsat, K2's launch count above zero and the fused loop's
+   bookkeeping kernel run once a K2 dispatch (its graph's replays counted,
+   from zero before the second pass); boards/s of the second pass
    and its pack / solve / drain trace; then passes with ``inflight`` 1, 3
    and 1, each result identical to the second pass's, with boards/s and
    trace; then one more pass under torch.profiler for device time by
@@ -64,8 +67,17 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
 9. the cover path at full width, ``solve_csp`` with ``step_impl="fused"``,
    4,096 lanes, S=128, ``count_all``, ``steal_rounds=4``: n-queens 14 must
    count 365,596 and pentomino 6x10 9,356, exhausted, no overflow, K3's
-   launch count above zero; wall, solutions/s and dispatches of the second
-   run of each; then n-queens 14 once more under torch.profiler;
+   launch count above zero and the bookkeeping kernel run once a K3
+   dispatch; wall, solutions/s and dispatches of the second run of each;
+   then n-queens 14 once more under torch.profiler; then the fused loop's
+   bookkeeping kernel (``csrc/bookkeep.cu``) against its plain version
+   (``ops/cuda_bookkeep.bookkeep_plain``) on one real dispatch at each
+   benchmark cell's shape: pentomino 6x10 at 32,768 lanes, one job,
+   S=128, count mode, fanned out by 160 steps of fused dispatches, and
+   32,768 16x16 boards, one job a lane, S=12, k=8, after two dispatches;
+   every field, the next top and the flag bit-equal; the kernel's device
+   time (torch.profiler, its three launches a call), the plain version's
+   and the bound by the bytes it has to move;
 10. the composite cover path (``step_impl="xla"``): n-queens 12 must count
    14,200, and each HARD_9 board solved through ``sudoku_cover`` must
    decode to the native oracle's solution;
@@ -225,12 +237,13 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
    600 --compile-rearm 5 --peak-gflops`` the int32 peak above, in G ops/s;
    the CLI's engine with ``step_impl="fused"``, which the CLI has no flag
    for) installs its compile watch and builds nothing at boot.  Its first
-   request, alone on the host, builds and loads K2's library through
-   ``cuda_build.load`` under the watch; the wall from the node's start to
-   that answer is the time to a serving node.  An in-process node C
-   (composite, K1) does the same for K1's library with its first static
-   request; ``/metrics`` ``compile`` must then show exactly those two
-   libraries, each built once and loaded once, with the nvcc seconds.
+   request, alone on the host, builds and loads K2's library and the
+   fused loop's bookkeeping kernel's through ``cuda_build.load`` under the
+   watch; the wall from the node's start to that answer is the time to a
+   serving node.  An in-process node C (composite, K1) does the same for
+   K1's library with its first static request; ``/metrics`` ``compile``
+   must then show exactly those three libraries, each built once and
+   loaded once, with the nvcc seconds.
    The smoke then builds the five libraries no node has used (one nvcc
    each, all at once, in a process of its own, so no watch hears of it)
    beside phase 17's routes: 512 corpus boards and HARD_9 resident,
@@ -276,7 +289,8 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
    head, P16 once per mask width; K1's and K2's launches include the
    serving, mesh, process-mesh and compile-watch phases', K2's the
    front-door and cluster phases' too, K3's the mesh, process-mesh and
-   compile-watch phases');
+   compile-watch phases'; the bookkeeping kernel's row, BK, counts its
+   runs in phases 6 and 9 and is timed at the pentomino shape);
 24. the last line, ``{"ok": true, "device": {...}}``.
 
 Tolerance everywhere: exact equality (``max_abs_err`` 0), the kernels being
@@ -318,7 +332,7 @@ SIZES = dict(corpus=65536, k1_boards=32768, k2_lanes=32768, k2_lanes16=8192, com
              mesh_composite=4096, mesh_steal_easy=63, mesh_k2=32768, mesh_k2_plain=1024,
              mesh_resident=256, procmesh_procs=2, procmesh_shards=2, procmesh_limit_s=480,
              compile_mass=512, compile_bulk=1024, compile_static=128,
-             compile_sync=8)
+             compile_sync=8, bookkeep_lanes=32768, bookkeep_boards16=4096)
 
 HEAD_RULES = ("head:minrem", "head:cw-slack", "head:mlp")
 
@@ -334,6 +348,13 @@ KERNELS = {
            "distributed_sudoku_solver_tpu/ops/pallas_cover.py:545"),
     "P16": ("P16 fixpoint_probe", "probe_uint16.cu", "benchmarks/probe_uint16.py:94"),
     "PCV": ("PCV cover_probe", "probe_cover.cu", "benchmarks/probe_cover_kernel.py:176"),
+}
+
+# Kernels of the port with no TPU kernel to replace: the JAX package does
+# their work in XLA ops (here the line of the function that holds them).
+PORT_KERNELS = {
+    "BK": ("BK fused-loop bookkeeping", "bookkeep.cu",
+           "distributed_sudoku_solver_tpu/ops/pallas_step.py:762"),
 }
 
 # The counter builds (-DDSST_STAGE_CLOCKS): K2's and K3's stage breakdowns.
@@ -480,29 +501,34 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def window_ms(averages, match: str, want: int):
-    """Mean device ms per kernel event of one profiled window: the device
-    time of the events whose name contains ``match`` (events with device
-    time only, so runtime calls never count) over their number, with that
-    number; None for the time when the number is not ``want`` (a window
-    that dropped or gained events)."""
-    events = [e for e in averages if match in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in events)
-    if count != want:
-        return None, count
-    return sum(e.self_device_time_total for e in events) / count / 1e3, count
+def window_ms(averages, match, want: int):
+    """Mean device ms per call of one profiled window: the device time of
+    the events whose name contains ``match`` (events with device time only,
+    so runtime calls never count) over ``want`` calls, with the number of
+    events; None for the time when the number is not ``want`` (a window
+    that dropped or gained events).  ``match`` may be a tuple of names, for
+    a call that launches one kernel of each: then each name must have
+    ``want`` events."""
+    names = (match,) if isinstance(match, str) else tuple(match)
+    events = [e for e in averages
+              if any(m in e.key for m in names) and e.self_device_time_total > 0]
+    counts = [sum(e.count for e in events if m in e.key) for m in names]
+    if any(c != want for c in counts):
+        return None, sum(counts)
+    return sum(e.self_device_time_total for e in events) / want / 1e3, sum(counts)
 
 
 # Throwaway launches that open each profiled window of device_ms.
 PRIMERS = 16
 
 
-def device_ms(fn, reps: int, setup, match: str) -> float:
+def device_ms(fn, reps: int, setup, match) -> float:
     """Mean device time per call of the kernels whose name contains
-    ``match``, over ``reps`` calls of ``fn(setup())`` under torch.profiler
-    after one warm-up; ``setup`` runs before the profiled region.  Each
-    call launches one such kernel, and a window counts only if it recorded
-    exactly ``reps`` of them; up to three windows, else AssertionError.
+    ``match`` (a name, or a tuple of names: see :func:`window_ms`), over
+    ``reps`` calls of ``fn(setup())`` under torch.profiler after one
+    warm-up; ``setup`` runs before the profiled region.  Each call launches
+    one such kernel of each name, and a window counts only if it recorded
+    exactly ``reps`` of each; up to three windows, else AssertionError.
     The profiler loses the first kernel records of a window now and then
     (the first two, on the H100 after a process has run a while), so each
     window opens with ``PRIMERS`` launches of a one-word add and a sync.
@@ -977,7 +1003,7 @@ def bulk_turns(corpus, dev, order, ref=None, tag="[6]") -> dict:
 def phase_main(corpus, dev):
     import numpy as np
 
-    from distributed_sudoku_solver_tpu_torch.ops import cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep, cuda_propagate, cuda_step
     from distributed_sudoku_solver_tpu_torch.utils.puzzles import HARD_9
 
     _, wall, _ = bulk_pass(corpus, dev, 3, traced=False)
@@ -985,15 +1011,20 @@ def phase_main(corpus, dev):
 
     cuda_step.fused_rounds_cuda.launches = 0
     cuda_propagate.propagate_fixpoint_cuda.launches = 0
+    cuda_bookkeep.bookkeep_cuda.launches = 0
     res, wall, _ = bulk_pass(corpus, dev, 3, traced=False)
     launches = {"K2": cuda_step.fused_rounds_cuda.launches,
-                "K1": cuda_propagate.propagate_fixpoint_cuda.launches}
+                "K1": cuda_propagate.propagate_fixpoint_cuda.launches,
+                "BK": cuda_bookkeep.bookkeep_cuda.launches}
     check_solutions(corpus, res.solution, res.solved, res.unsat, "bulk")
     for i, h in enumerate(HARD_9):
         if not np.array_equal(res.solution[i], hard9_solutions()[i]):
             raise AssertionError(f"bulk: HARD_9[{i}] differs from the oracle's solution")
     if launches["K2"] <= 0:
         raise AssertionError("bulk main path launched K2 no time")
+    if launches["BK"] != launches["K2"]:
+        raise AssertionError(f"bulk main path: {launches['BK']} runs of the bookkeeping kernel "
+                             f"against {launches['K2']} K2 dispatches")
     SINGLE_DEVICE["bulk boards/s"] = len(corpus) / wall
     log(f"[6] bulk pass 2 (inflight=3): {len(corpus)} boards in {wall:.3f} s = "
         f"{len(corpus) / wall:.1f} boards/s; searched {res.searched}, by propagation "
@@ -1227,11 +1258,16 @@ def phase_cover_main(dev):
     """The cover path at full width: fused enumerations, second run timed."""
     import torch
 
-    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_propagate, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops import (
+        cuda_bookkeep,
+        cuda_cover,
+        cuda_propagate,
+        cuda_step,
+    )
     from distributed_sudoku_solver_tpu_torch.ops.solve import solve_csp
 
     cfg = cover_config()
-    launches = {}
+    launches, bookkeep = {}, {}
     for name, problem, roots in cover_instances(full=False):
         t0 = time.perf_counter()
         solve_csp(roots, problem, cfg, device=dev)
@@ -1240,6 +1276,7 @@ def phase_cover_main(dev):
         cuda_cover.cover_fused_rounds_cuda.launches = 0
         cuda_step.fused_rounds_cuda.launches = 0
         cuda_propagate.propagate_fixpoint_cuda.launches = 0
+        cuda_bookkeep.bookkeep_cuda.launches = 0
         t0 = time.perf_counter()
         res = solve_csp(roots, problem, cfg, device=dev)
         torch.cuda.synchronize()
@@ -1254,13 +1291,17 @@ def phase_cover_main(dev):
                                  f"({bool(res.overflowed[0])})")
         if n <= 0 or others:
             raise AssertionError(f"{name}: K3 launched {n} times, K1/K2 {others} times")
+        if cuda_bookkeep.bookkeep_cuda.launches != n:
+            raise AssertionError(f"{name}: {cuda_bookkeep.bookkeep_cuda.launches} runs of the "
+                                 f"bookkeeping kernel against {n} K3 dispatches")
         _check_cover_solution(name, problem, res.solution[0])
         launches[name] = n
+        bookkeep[name] = cuda_bookkeep.bookkeep_cuda.launches
         SINGLE_DEVICE[f"cover {name}"] = wall
         log(f"[9] {name} run 2: {count} solutions in {wall:.3f} s = {count / wall:.1f} "
             f"solutions/s; dispatches {n}, steps {int(res.steps)}, nodes "
             f"{int(res.nodes[0])}, sweeps {int(res.sweeps)}, steals {int(res.steals)}")
-    return launches
+    return launches, bookkeep
 
 
 def phase_cover_profile(dev) -> None:
@@ -1285,6 +1326,118 @@ def phase_cover_profile(dev) -> None:
         f"({100 * busy_us / wall_us:.1f}% of wall)")
     for key, us, count in rows[:8]:
         log(f"    {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+
+
+# The three kernels of csrc/bookkeep.cu, one launch of each a bookkeeping.
+BOOKKEEP_KERNELS = ("harvest_kernel", "purge_kernel", "steal_fold_kernel")
+
+
+def bookkeep_bytes(before, kout, after, clear_words: int) -> int:
+    """Bytes one run of the fused loop's bookkeeping has to move, from its
+    frontier ``before`` and ``after`` and the round's ``kout``: per lane
+    the eight ``lane_out`` words, ``job`` and ``base`` read, ``lane_rounds``
+    read and written, ``has_top`` and ``count`` written (53); per job
+    ``nodes`` and ``sol_count`` read and written, ``solved`` and
+    ``overflowed`` read and written (20); and the rows that change: each
+    dead lane's cleared words, each stolen row read from the stack and
+    written to the thief's top, each solution row written (and read from
+    the lanes' solutions)."""
+    lanes, jobs = before.has_top.shape[0], before.solved.shape[0]
+    words = before.top[0].numel()
+    tile = min(kout.tile, lanes)
+    live = kout.lane_out[6]
+    most = live.view(-1, tile).amax(1).repeat_interleave(tile)
+    dead = int((live < most).sum())
+    stolen = int(after.steals - before.steals)
+    solutions = int((after.solution != before.solution).flatten(1).any(1).sum())
+    rows = dead * clear_words + 2 * (stolen + solutions) * words
+    return 53 * lanes + 20 * jobs + 4 * rows
+
+
+def _bookkeep_case(what, fs, kout, config, sizes):
+    """The bookkeeping kernel and its plain version on one real dispatch
+    (``fs`` before it, ``kout`` the round kernel's outputs): every field,
+    the next top and the flag bit-equal; then the kernel's device time
+    (torch.profiler, its three launches a call), the plain version's and
+    the bound by bytes."""
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep
+
+    lanes, jobs, dev = fs.has_top.shape[0], fs.solved.shape[0], fs.has_top.device
+    limit = fs.steps.to(torch.int64) + 1_000_000
+
+    def fresh():  # the stack is only read, so it is shared
+        return (type(fs)(*(t if t is fs.stack else t.clone() for t in fs)),
+                kout._replace(top=kout.top.clone()), cuda_bookkeep.new_work(lanes, jobs, dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+
+    got, want = fresh(), fresh()
+    cuda_bookkeep.bookkeep_cuda(got[0], got[1], limit, got[3], got[2], config)
+    cuda_bookkeep.bookkeep_plain(want[0], want[1], limit, want[3], None, config)
+    torch.cuda.synchronize()
+    pairs = list(zip(got[0]._fields, got[0]._replace(top=got[1].top),
+                     want[0]._replace(top=want[1].top))) + [("go", got[3], want[3])]
+    errs = {name: max_abs_err(a, b) for name, a, b in pairs}
+    if any(errs.values()):
+        raise AssertionError(f"the bookkeeping kernel disagrees with its plain version, {what}: "
+                             f"{ {k: v for k, v in errs.items() if v} }")
+    after = got[0]
+    clear = kout.top[0].numel() if kout.words is None else kout.words
+    n_bytes = bookkeep_bytes(fs, kout, after, clear)
+
+    def run(args):
+        cuda_bookkeep.bookkeep_cuda(args[0], args[1], limit, args[3], args[2], config)
+
+    ms = device_ms(run, sizes["reps"], fresh, BOOKKEEP_KERNELS)
+    plain_ms = event_ms(lambda a: cuda_bookkeep.bookkeep_plain(a[0], a[1], limit, a[3], None,
+                                                               config),
+                        2, setup=fresh)
+    bms, by = bound_ms(n_bytes, 0)
+    log(f"[9] bookkeeping {what}: bit-equal (max_abs_err 0 on {len(pairs)} fields); "
+        f"{int(fs.has_top.sum())} lanes live before, {int(after.has_top.sum())} after, steals "
+        f"{int(after.steals - fs.steals)}, go {bool(got[3])}; {ms:.4f} ms (3 kernels, "
+        f"profiler), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, {n_bytes} B)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def phase_bookkeep(sizes, dev) -> dict:
+    """The fused loop's bookkeeping kernel against its plain version on a
+    real dispatch at each main path's shape: ``cover-pentomino``'s (6x10
+    pentomino, 32,768 lanes, one job, S=128, count mode, steals) and
+    ``sudoku16-bulk``'s first pass (32,768 16x16 boards, one job a lane,
+    S=12, k=8, extended rules, minrem), each frontier fanned out by fused
+    dispatches first.  Returns the cover case's row."""
+    import numpy as np
+    import torch
+
+    from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_16
+    from distributed_sudoku_solver_tpu_torch.models.pentomino import pentomino_cover
+    from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_step
+    from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
+    from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig, init_frontier
+
+    lanes = sizes["bookkeep_lanes"]
+    problem = pentomino_cover(6, 10)
+    cfg = cover_config(lanes=lanes).with_fused_steps(cuda_cover.FUSED_STEPS_LINKED)
+    state = init_frontier(torch.from_numpy(problem.initial_state()[None]).to(dev), cfg)
+    state = cuda_cover.advance_cover_fused(state, sizes["cover_fanout_steps"], problem, cfg)
+    fs = cuda_step.frontier_to_fused(state)
+    kout = cuda_cover._rounds_fn(problem, cfg, lanes)(fs, out=cuda_step._out_buffers(fs.top))
+    cover = _bookkeep_case(f"pentomino6x10 L={lanes} J=1 S={fs.stack.shape[1]} "
+                           f"D={fs.top[0].numel()}", fs, kout, cfg, sizes)
+    del state, fs, kout
+
+    grids = make_corpus(SUDOKU_16, sizes["bookkeep_boards16"], seed=29)
+    grids = np.resize(grids, (lanes, *grids.shape[1:]))
+    cfg = SolverConfig(lanes=lanes, stack_slots=12, max_steps=100_000, rules="extended",
+                       step_impl="fused", fused_steps=8)
+    state = init_frontier(encode_grid(torch.from_numpy(grids).to(dev), SUDOKU_16), cfg)
+    state = cuda_step.advance_frontier_fused(state, 16, SUDOKU_16, cfg)
+    fs = cuda_step.frontier_to_fused(state)
+    kout = cuda_step._round_kernel(fs, SUDOKU_16, cfg, out=cuda_step._out_buffers(fs.top))
+    _bookkeep_case(f"16x16 L=J={lanes} S=12 k=8", fs, kout, cfg, sizes)
+    return cover
 
 
 def phase_cover_composite(sizes, dev):
@@ -3739,7 +3892,7 @@ class _LogLines:
 
 
 # The libraries phase 21's nodes build through cuda_build.load at first use.
-NODE_TARGETS = (("fused_step", ""), ("propagate", ""))
+NODE_TARGETS = (("fused_step", ""), ("bookkeep", ""), ("propagate", ""))
 # The smoke's build of every other library (one nvcc each, all at once).
 SMOKE_BUILD = (
     "import json\n"
@@ -3916,10 +4069,10 @@ def phase_compile(corpus, device, sizes, dev) -> dict:
         sec = _compile_section(http_port)["compile"]
         nodes = {name: {k: rec.get(k) for k in ("builds", "loads", "wall_ms_total")}
                  for name, rec in sec["programs"].items()}
-        if (set(nodes) != {"fused_step", "propagate"}
+        if (set(nodes) != {lib for lib, _ in NODE_TARGETS}
                 or any(r["builds"] != 1 or r["loads"] != 1 for r in nodes.values())):
             raise AssertionError(f"(21) (a) the nodes' first requests did not build and load "
-                                 f"K2's and K1's libraries once each: {nodes}")
+                                 f"K2's, the bookkeeping's and K1's libraries once each: {nodes}")
         out["time_to_serving"] = {"node_up_s": up_s, "node_f_first_answer_s": f_serving_s,
                                   "node_f_first_request_s": f_wall, "node_c_first_request_s": c_wall,
                                   "libraries": nodes}
@@ -4127,7 +4280,7 @@ def phase_compile(corpus, device, sizes, dev) -> dict:
 
 
 def kernel_row(key: str, suffix: str = "", **fields) -> dict:
-    name, source, replaces = KERNELS[key]
+    name, source, replaces = {**KERNELS, **PORT_KERNELS}[key]
     return dict(name=name + suffix, route="cuda",
                 source=f"distributed_sudoku_solver_tpu_torch/csrc/{source}",
                 replaces=replaces, library_ms=None, **fields)
@@ -4245,8 +4398,9 @@ def main(argv=None) -> int:
     k3_err, k3_rows = phase_k3(frontiers, SIZES, dev)
     phase_cover_breakdown(frontiers, SIZES)
     del frontiers
-    cover_launches = phase_cover_main(dev)
+    cover_launches, cover_bookkeep = phase_cover_main(dev)
     phase_cover_profile(dev)
+    bookkeep = phase_bookkeep(SIZES, dev)
     phase_cover_composite(SIZES, dev)
     k2_heads = phase_k2_heads(corpus, SIZES, dev)
     head_launches, minrem_nodes = phase_heads_main(corpus, SIZES, dev)
@@ -4261,10 +4415,10 @@ def main(argv=None) -> int:
     mesh = phase_mesh(corpus, device, SIZES, dev)
     procmesh = phase_procmesh(corpus, device, SIZES, dev, mesh)
     log(f"[23] elapsed {time.perf_counter() - t_start:.1f} s; node F answered its first request "
-        f"{serving_s['node_f_first_answer_s']:.1f} s after its start (K2's library built and "
-        f"loaded on that request), node C its first in {serving_s['node_c_first_request_s']:.1f} s "
-        f"(K1's); the smoke's build of the other five libraries beside phase 21 took "
-        f"{max(smoke_build_s.values(), default=0.0):.1f} s")
+        f"{serving_s['node_f_first_answer_s']:.1f} s after its start (K2's and the bookkeeping "
+        f"kernel's libraries built and loaded on that request), node C its first in "
+        f"{serving_s['node_c_first_request_s']:.1f} s (K1's); the smoke's build of the other "
+        f"five libraries beside phase 21 took {max(smoke_build_s.values(), default=0.0):.1f} s")
     kernels = [
         kernel_row("K1", launches=comp_launches["K1"] + serving["K1"] + mesh["K1"]
                    + procmesh["K1"] + compile_launches["K1"], **k1),
@@ -4272,6 +4426,8 @@ def main(argv=None) -> int:
                    + cluster["K2"] + mesh["K2"] + procmesh["K2"] + compile_launches["K2"], **k2),
         kernel_row("K3", launches=sum(cover_launches.values()) + mesh["K3"] + procmesh["K3"]
                    + compile_launches["K3"], max_abs_err=k3_err, **k3_rows["pentomino6x10"]),
+        kernel_row("BK", launches=main_launches["BK"] + sum(cover_bookkeep.values()),
+                   max_abs_err=0, **bookkeep),
     ]
     kernels += [kernel_row("K2", f" {rule}", launches=head_launches[rule], **k2_heads[rule])
                 for rule in HEAD_RULES]

@@ -261,6 +261,7 @@ KERNEL_LIBRARIES = (
     ("propagate", ""),
     ("fused_step", ""),
     ("cover", ""),
+    ("bookkeep", ""),
     ("probe_uint16", ""),
     ("probe_cover", ""),
     ("fused_step", "clocks"),
@@ -341,6 +342,7 @@ KERNELCK_CANON = {
 KERNELCK_BANNED_DTYPES = ("float64", "complex128")
 KERNELCK_HOT_SOURCES = (
     "ops/bitmask.py",
+    "ops/cuda_bookkeep.py",
     "ops/cuda_propagate.py",
     "ops/cuda_step.py",
     "ops/frontier.py",

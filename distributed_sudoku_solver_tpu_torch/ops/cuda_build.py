@@ -41,7 +41,7 @@ from distributed_sudoku_solver_tpu_torch.obs import compilewatch, lockdep
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("propagate", "fused_step", "cover", "probe_uint16", "probe_cover")
+SOURCES = ("propagate", "fused_step", "cover", "bookkeep", "probe_uint16", "probe_cover")
 HEADERS = ("fixpoint.cuh",)
 VARIANTS = {"": (), "clocks": ("-DDSST_STAGE_CLOCKS",)}
 TARGETS = tuple((name, "") for name in SOURCES)

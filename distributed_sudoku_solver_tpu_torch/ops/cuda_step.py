@@ -32,9 +32,12 @@ raises.  ``fused_rounds_cuda.launches`` counts kernel launches.
 
 The fused loop (:func:`_run_fused`) dispatches the kernel and then does the
 job bookkeeping between dispatches (harvest, purge, steal, counters).  On
-CUDA tensors that bookkeeping is one replay of a captured CUDA graph a
-dispatch (:class:`_RoundGraph`); the kernel itself is still launched by a
-Python call through :func:`fused_rounds` every dispatch.
+CUDA tensors that bookkeeping is a hand-written kernel
+(``ops/cuda_bookkeep.py``, ``csrc/bookkeep.cu``) replayed from a captured
+CUDA graph, one replay a dispatch (:class:`_RoundGraph`); the round kernel
+itself is still launched by a Python call through :func:`fused_rounds`
+every dispatch.  :func:`_fused_bookkeeping` stays the plain version: the
+CPU's path and the kernel's reference.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -50,7 +54,7 @@ import torch
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
 from distributed_sudoku_solver_tpu_torch.models.sudoku import SudokuCSP
 from distributed_sudoku_solver_tpu_torch.obs import lockdep, trace
-from distributed_sudoku_solver_tpu_torch.ops import cuda_build, ordering
+from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep, cuda_build, ordering
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import (
     is_single,
     lowest_bit,
@@ -582,31 +586,42 @@ def _fused_go(fs: FusedFrontier, limit) -> torch.Tensor:
 
 
 class _RoundGraph:
-    """One dispatch's post-processing, bookkeeping and the next loop
-    condition (:func:`_kernel_outputs`, :func:`_fused_bookkeeping`,
-    :func:`_fused_go`), captured as a CUDA graph over static buffers:
-    ``state``, the frontier between dispatches (the round kernel reads its
-    lanes there), ``kout``, the kernel's own outputs (a :class:`KernelOut`,
-    which the kernel writes each dispatch), ``limit`` and ``go``.  Each
-    replay writes the next frontier into ``state`` and the condition into
-    ``go``.  The round kernel stays outside the graph: it is launched by a
-    Python call each dispatch.
+    """One dispatch's bookkeeping and the next loop condition
+    (``ops/cuda_bookkeep.bookkeep_cuda``: the hand-written kernel of
+    ``csrc/bookkeep.cu``, three launches), captured as a CUDA
+    graph over static buffers: ``state``, the frontier between dispatches
+    (the round kernel reads its lanes there), the round kernel's own
+    outputs (``sol``, ``lane_out`` and a top; ``kout`` is the
+    :class:`KernelOut` it returned), ``limit``, ``go`` and the bookkeeping
+    kernel's scratch ``work``.  Each replay
+    writes the next frontier into ``state`` and the condition into ``go``.
+    The round kernel stays outside the graph: it is launched by a Python
+    call each dispatch.
 
-    Captured on the first :meth:`dispatch_round`, after a warm-up run of
-    the chain whose results are dropped, on a side stream, with
+    The frontier's top and the kernel's output top are two buffers,
+    ``tops``, that swap each dispatch: the kernel reads one and writes the
+    other, which the bookkeeping then edits in place and ``state`` takes
+    as its top, so no top is copied.  So there are two graphs, one for
+    each way round.  Both are captured on the first :meth:`dispatch_round`
+    (the kernels loaded first), on a side stream, with
     ``capture_error_mode="thread_local"`` (other threads may copy and
     launch on the card meanwhile).  A capture that fails raises
-    ``KernelError``."""
+    ``KernelError``.  Each replay counts one run of the bookkeeping in
+    ``bookkeep_cuda.launches``."""
 
     graph = True
 
     def __init__(self, fs: FusedFrontier):
         dev = fs.has_top.device
         self.state = FusedFrontier(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in fs))
+        self.tops = (self.state.top, torch.empty_like(self.state.top))
+        self.sol = torch.empty_like(self.state.top)
+        self.lane_out = torch.empty((8, fs.has_top.shape[0]), dtype=torch.int32, device=dev)
         self.limit = torch.zeros((), dtype=torch.int64, device=dev)
         self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.work = cuda_bookkeep.new_work(fs.has_top.shape[0], fs.solved.shape[0], dev)
         self.kout: KernelOut | None = None
-        self.replay = None
+        self.replays = None  # by the index in ``tops`` of the frontier's top
         self.stream = None  # where the last call's reads of ``state`` were enqueued
 
     def load(self, fs: FusedFrontier, limit) -> None:
@@ -620,14 +635,15 @@ class _RoundGraph:
 
     def dispatch_round(self, geom: Geometry | None, config, rounds_fn) -> None:
         """One dispatch: the round kernel on the buffers by a Python call
-        (:func:`_round_kernel`), writing into ``kout``, then the replay."""
-        if self.replay is None:
-            self.kout = _round_kernel(self.state, geom, config, rounds_fn,
-                                      out=_out_buffers(self.state.top))
-            self.replay = self._capture(config)
-        else:
-            _round_kernel(self.state, geom, config, rounds_fn, out=self.kout[:3])
-        self.replay()
+        (:func:`_round_kernel`), writing into ``tops``, ``sol`` and
+        ``lane_out``, then the replay."""
+        p = 0 if self.state.top is self.tops[0] else 1
+        self.kout = _round_kernel(self.state, geom, config, rounds_fn,
+                                  out=(self.tops[1 - p], self.sol, self.lane_out))
+        if self.replays is None:
+            self.replays = self._capture(config)
+        self.replays[p]()
+        self.state = self.state._replace(top=self.tops[1 - p])
 
     def unload(self, stack: torch.Tensor) -> FusedFrontier:
         """End a call: fresh tensors of the frontier, which later calls do
@@ -635,32 +651,34 @@ class _RoundGraph:
         stack.copy_(self.state.stack)
         return FusedFrontier(*(stack if t is self.state.stack else t.clone() for t in self.state))
 
-    def _chain(self, config) -> tuple:
-        k = self.kout
-        out = _kernel_outputs(k.top, self.state.stack, self.state.base, k.sol, k.lane_out,
-                              k.tile, k.words)
-        new = _fused_bookkeeping(self.state, out, config)
-        return new, _fused_go(new, self.limit)
+    def _bookkeep(self, p: int, config) -> None:
+        """The bookkeeping of a dispatch that read ``tops[p]``."""
+        cuda_bookkeep.bookkeep_cuda(self.state._replace(top=self.tops[p]),
+                                    self.kout._replace(top=self.tops[1 - p]), self.limit,
+                                    self.go, self.work, config)
 
-    def _write(self, new: FusedFrontier, go: torch.Tensor) -> None:
-        pairs = [(s, n) for s, n in zip(self.state, new) if n is not s]
-        torch._foreach_copy_([s for s, _ in pairs] + [self.go], [n for _, n in pairs] + [go])
-
-    def _capture(self, config):
-        """Warm up and capture the chain; returns the graph's replay."""
+    def _capture(self, config) -> tuple:
+        """Capture the bookkeeping both ways round; returns the replays."""
         dev = self.go.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
+        replays = []
         try:
-            with torch.cuda.stream(side):
-                self._chain(config)
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self._write(*self._chain(config))
+            cuda_bookkeep.prepare()
+            for p in (0, 1):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                    self._bookkeep(p, config)
+                replays.append(functools.partial(_replay_counted, graph))
         except RuntimeError as e:
             raise cuda_build.KernelError(f"capturing the fused loop's bookkeeping failed: {e}") from e
         torch.cuda.current_stream(dev).wait_stream(side)
-        return graph.replay
+        return tuple(replays)
+
+
+def _replay_counted(graph) -> None:
+    graph.replay()
+    cuda_bookkeep.bookkeep_cuda.launches += 1
 
 
 class _EagerRounds:
@@ -728,8 +746,8 @@ class _GraphCache:
 # pass and two rungs).  A serving node uses one a geometry for its resident
 # flight and one for its megastep, and its static flights one a power-of-two
 # job bucket, nine a geometry at max_batch 256: 22 for 9x9 and 16x16 together.
-# An entry holds about twice its frontier (the frontier's and the kernel's
-# outputs' buffers) and the graph's own pool.
+# An entry holds its frontier, a second top, the round kernel's other outputs
+# and the bookkeeping kernel's scratch; its two graphs allocate nothing.
 _GRAPHS = _GraphCache(32)
 
 

@@ -4,11 +4,13 @@ The CPU runs the bookkeeping eagerly and counts no graph round.  The graph
 cache's key and bound logic is held with stub entries.  The graph path of
 ``ops/cuda_step._run_fused`` (``_RoundGraph``: static buffers loaded from the
 caller's frontier, one replay a dispatch, fresh tensors out) is held
-against the eager loop with a stub capture whose replay runs the captured
-chain eagerly: the same fields, the same dispatches, every one a graph
-round.  The real capture runs only on a card
+against the eager loop with a stub capture whose replay runs the plain
+bookkeeping eagerly: the same fields, the same dispatches, every one a
+graph round and one counted run of the bookkeeping kernel.  The real capture runs only on a card
 (``tests/test_torch_fused_graph_cuda.py``).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ import torch
 from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, Geometry
 from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
 from distributed_sudoku_solver_tpu_torch.obs import trace
-from distributed_sudoku_solver_tpu_torch.ops import cuda_cover, cuda_step
+from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep, cuda_cover, cuda_step
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
 from distributed_sudoku_solver_tpu_torch.ops.bulk import BulkConfig, solve_bulk
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
@@ -218,12 +220,21 @@ def _writing_into_out(plain):
     return rounds
 
 
+class _Graph:
+    """Stands in for a captured graph: its replay runs the bookkeeping."""
+
+    def __init__(self, replay):
+        self.replay = replay
+
+
 @pytest.fixture
 def stub_graphs(monkeypatch):
-    """A cache of its own, a capture whose replay runs the captured chain
-    eagerly (the CPU has no graphs) and round functions that write into the
-    graph's buffers as the kernels do; ``_run_fused`` still takes the eager
-    path until a test sets ``cuda_step._replays``."""
+    """A cache of its own, a capture whose replays run the captured
+    bookkeeping eagerly and count as the real ones do (the CPU has no
+    graphs, and the plain version, ``bookkeep_plain``, stands in for the
+    kernel) and round functions that write into the graph's buffers as the
+    kernels do; ``_run_fused`` still takes the eager path until a test sets
+    ``cuda_step._replays``."""
     cache = cuda_step._GraphCache(8)
     monkeypatch.setattr(cuda_step, "_GRAPHS", cache)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
@@ -231,8 +242,16 @@ def stub_graphs(monkeypatch):
     monkeypatch.setattr(cuda_cover, "cover_fused_rounds",
                         _writing_into_out(cuda_cover.cover_fused_rounds))
 
+    def plain(*args):
+        cuda_bookkeep.bookkeep_plain(*args)
+
+    plain.launches = 0
+    monkeypatch.setattr(cuda_bookkeep, "bookkeep_cuda", plain)
+
     def capture(self, config):
-        return lambda: self._write(*self._chain(config))
+        return tuple(functools.partial(cuda_step._replay_counted,
+                                       _Graph(functools.partial(self._bookkeep, p, config)))
+                     for p in (0, 1))
 
     monkeypatch.setattr(cuda_step._RoundGraph, "_capture", capture)
     return cache
@@ -299,6 +318,7 @@ def test_graph_path_equals_the_eager_loop(surface, stub_graphs, monkeypatch):
     _equal(got, want)
     assert graph_dispatches == dispatches > 0
     assert graph_rounds == dispatches and eager_rounds == 0
+    assert cuda_bookkeep.bookkeep_cuda.launches == graph_rounds  # one run a replay
     assert len(stub_graphs) >= 1
     if surface == "cover":
         assert int(got.sol_count.sum()) == 4  # the 6-queens solutions
@@ -323,7 +343,7 @@ def test_graph_path_returns_fresh_tensors_and_the_callers_stack(stub_graphs, mon
     _equal(list(a), kept)
     assert a.stack is fs_a.stack and b.stack is fs_b.stack
     (entry,) = [s[1] for s in stub_graphs._slots]
-    buffers = {t.data_ptr() for t in entry.state}
+    buffers = {t.data_ptr() for t in (*entry.state, *entry.tops)}
     assert not buffers & {t.data_ptr() for t in (*a, *b)}
     assert not torch.equal(a.top, b.top)
     done = cuda_step._run_fused(a, SUDOKU_9, cfg, 0)

@@ -239,24 +239,23 @@ def test_a_second_call_leaves_the_first_result_untouched(cuda_device, graphs):
     _assert_equal(a, kept)
     assert a.stack is fs_a.stack and b.stack is fs_b.stack
     (entry,) = [s[1] for s in graphs._slots]
-    buffers = {t.data_ptr() for t in entry.state}
+    buffers = {t.data_ptr() for t in (*entry.state, *entry.tops)}
     assert not buffers & {t.data_ptr() for t in (*a, *b)}
     assert not torch.equal(a.top, b.top)
 
 
 @pytest.mark.cuda
 def test_a_failed_capture_raises_kernel_error(cuda_device, monkeypatch, graphs):
-    """A chain that cannot be captured (here: one that reads a value on the
-    host) raises ``KernelError`` and leaves no entry; nothing runs eagerly
-    in its place."""
-    chain = cuda_step._RoundGraph._chain
+    """A bookkeeping that cannot be captured (here: one that reads a value
+    on the host) raises ``KernelError`` and leaves no entry; nothing runs
+    eagerly in its place."""
+    bookkeep = cuda_step._RoundGraph._bookkeep
 
-    def reading(self, config):
-        new, go = chain(self, config)
-        bool(go)  # a host sync: illegal while the stream captures
-        return new, go
+    def reading(self, p, config):
+        bookkeep(self, p, config)
+        bool(self.go)  # a host sync: illegal while the stream captures
 
-    monkeypatch.setattr(cuda_step._RoundGraph, "_chain", reading)
+    monkeypatch.setattr(cuda_step._RoundGraph, "_bookkeep", reading)
     states0 = encode_grid(_grids16(256, 41).to(cuda_device), GEOM16)
     fs = cuda_step.frontier_to_fused(init_frontier(states0, FIRST))
     with pytest.raises(cuda_build.KernelError):

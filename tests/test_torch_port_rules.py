@@ -282,6 +282,26 @@ def test_chip_smoke_kernels_line_names_all_five_kernels():
         assert "pallas_call" in at or at.startswith("def "), (key, at)
 
 
+def test_chip_smoke_kernels_line_names_the_port_only_kernels():
+    """The port's kernels with no TPU kernel to replace (the fused loop's
+    bookkeeping): each with its source, a row in the kernels line, and the
+    line of the JAX function whose XLA ops it does."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    assert set(chip_smoke.PORT_KERNELS) == {"BK"}
+    assert not set(chip_smoke.PORT_KERNELS) & set(chip_smoke.KERNELS)
+    text = (REPO / "chip_smoke.py").read_text()
+    for key, (name, source, replaces) in chip_smoke.PORT_KERNELS.items():
+        assert name.startswith(key + " ") and f'kernel_row("{key}"' in text
+        assert (PKG / "csrc" / source).exists()
+        path, line = replaces.split(":")
+        at = (REPO / path).read_text().splitlines()[int(line) - 1]
+        assert at.startswith("def _fused_round("), (key, at)
+
+
 def test_chip_smoke_fails_without_a_card():
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
                          text=True, timeout=300)

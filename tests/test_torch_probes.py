@@ -368,6 +368,25 @@ def test_profiler_window_counts_only_exact_windows():
     assert chip_smoke.window_ms(window, "Launch", 5) == (None, 0)
 
 
+def test_profiler_window_reads_a_call_of_several_kernels():
+    """``chip_smoke.window_ms`` with a tuple of names (the bookkeeping's
+    three kernels): the device time of all of them per call, read only
+    where each name has exactly the calls asked for."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    ev = lambda key, count, us: SimpleNamespace(key=key, count=count, self_device_time_total=us)
+    names = chip_smoke.BOOKKEEP_KERNELS
+    window = [ev(f"(anonymous namespace)::{n}(Args)", 5, 50.0 * (i + 1))
+              for i, n in enumerate(names)] + [ev("cudaLaunchKernel", 15, 0.0)]
+    assert chip_smoke.window_ms(window, names, 5) == (pytest.approx(0.06), 15)
+    short = window[:1] + [ev(names[1], 4, 40.0), ev(names[2], 6, 150.0)]
+    assert chip_smoke.window_ms(short, names, 5) == (None, 15)
+    assert chip_smoke.window_ms(window[:2], names, 5) == (None, 10)
+
+
 @pytest.mark.parametrize("windows, want", [
     ([3, 5], 0.1),      # a short window, then an exact one
     ([4, 6, 5], 0.1),   # short, long, exact
