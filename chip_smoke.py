@@ -1383,8 +1383,7 @@ def _bookkeep_case(what, fs, kout, config, sizes):
         raise AssertionError(f"the bookkeeping kernel disagrees with its plain version, {what}: "
                              f"{ {k: v for k, v in errs.items() if v} }")
     after = got[0]
-    clear = kout.top[0].numel() if kout.words is None else kout.words
-    n_bytes = bookkeep_bytes(fs, kout, after, clear)
+    n_bytes = bookkeep_bytes(fs, kout, after, kout.words)
 
     def run(args):
         cuda_bookkeep.bookkeep_cuda(args[0], args[1], limit, args[3], args[2], config)
@@ -1421,8 +1420,7 @@ def phase_bookkeep(sizes, dev) -> dict:
     problem = pentomino_cover(6, 10)
     cfg = cover_config(lanes=lanes).with_fused_steps(cuda_cover.FUSED_STEPS_LINKED)
     state = init_frontier(torch.from_numpy(problem.initial_state()[None]).to(dev), cfg)
-    state = cuda_cover.advance_cover_fused(state, sizes["cover_fanout_steps"], problem, cfg)
-    fs = cuda_step.frontier_to_fused(state)
+    fs = cuda_cover.advance_cover_fused(state, sizes["cover_fanout_steps"], problem, cfg)
     kout = cuda_cover._rounds_fn(problem, cfg, lanes)(fs, out=cuda_step._out_buffers(fs.top))
     cover = _bookkeep_case(f"pentomino6x10 L={lanes} J=1 S={fs.stack.shape[1]} "
                            f"D={fs.top[0].numel()}", fs, kout, cfg, sizes)
@@ -1433,9 +1431,8 @@ def phase_bookkeep(sizes, dev) -> dict:
     cfg = SolverConfig(lanes=lanes, stack_slots=12, max_steps=100_000, rules="extended",
                        step_impl="fused", fused_steps=8)
     state = init_frontier(encode_grid(torch.from_numpy(grids).to(dev), SUDOKU_16), cfg)
-    state = cuda_step.advance_frontier_fused(state, 16, SUDOKU_16, cfg)
-    fs = cuda_step.frontier_to_fused(state)
-    kout = cuda_step._round_kernel(fs, SUDOKU_16, cfg, out=cuda_step._out_buffers(fs.top))
+    fs = cuda_step.advance_frontier_fused(state, 16, SUDOKU_16, cfg)
+    kout = cuda_step._rounds_fn(SUDOKU_16, cfg, lanes)(fs, out=cuda_step._out_buffers(fs.top))
     _bookkeep_case(f"16x16 L=J={lanes} S=12 k=8", fs, kout, cfg, sizes)
     return cover
 

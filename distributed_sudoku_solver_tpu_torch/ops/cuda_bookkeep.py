@@ -2,34 +2,41 @@
 
 Between two round-kernel dispatches (K2 or K3) the fused loop harvests the
 first solutions, purges the solved jobs' lanes, steals, counts, and forms
-the next loop condition.  :func:`bookkeep_cuda` does all of it in place,
-in three launches of ``csrc/bookkeep.cu``: it reads the round's
-:class:`~.cuda_step.KernelOut` and writes the next frontier into ``state``
-(every field but ``top``) and into ``kout.top``, which becomes the
-frontier's top, and the condition into ``go``.  Nothing is read on the
-host, so the fused loop's graph (``ops/cuda_step._RoundGraph``) captures it.
+the next loop condition.  A round function given ``out=`` writes its own
+outputs into the loop's buffers and returns them as a :class:`KernelOut`;
+:func:`_kernel_outputs` makes the 13-tuple of ``fused_rounds`` from them.
 
-:func:`bookkeep_plain` is the plain version, on any device:
-``_kernel_outputs``, ``_fused_bookkeeping`` and ``_fused_go`` of
-``ops/cuda_step.py`` (the chain the CPU's eager loop runs) with the results
-copied into the same buffers.  ``bookkeep_cuda.launches`` counts the
-bookkeeping's runs on the card: its calls outside a graph capture, and each
-replay of the fused loop's graph (counted there); a capture runs nothing and
-counts nothing.
+:func:`_fused_bookkeeping` and :func:`_fused_go` are the plain bookkeeping
+and loop condition: functional, on any device, over the 13-tuple.
+:func:`bookkeep_cuda` does the same in place, in three launches of
+``csrc/bookkeep.cu``: it reads the round's :class:`KernelOut` and writes the
+next frontier into ``state`` (every field but ``top``) and into
+``kout.top``, which becomes the frontier's top, and the condition into
+``go``.  Nothing is read on the host, so the fused loop
+(``ops/cuda_step._run_fused``) captures it in a CUDA graph.
+:func:`bookkeep_plain` writes the plain chain's results into the same
+buffers: the loop's bookkeeping on the CPU, and the kernel's reference.
+``bookkeep_cuda.launches`` counts the kernel's runs on the card: its calls
+outside a graph capture, and each replay of the fused loop's graph (counted
+there); a capture runs nothing and counts nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import TYPE_CHECKING
+from typing import NamedTuple
 
 import torch
 
 from distributed_sudoku_solver_tpu_torch.ops import cuda_build
-
-if TYPE_CHECKING:
-    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import FusedFrontier, KernelOut
+from distributed_sudoku_solver_tpu_torch.ops.frontier import (
+    Frontier,
+    _scatter_add,
+    _scatter_min,
+    _set_rows,
+    _steal,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +50,123 @@ NO_LANE = 2**31 - 1
 
 _BOOL_FIELDS = ("has_top", "solved", "overflowed")
 _SCALAR_FIELDS = ("steps", "sweeps", "expansions", "steals")
+
+
+class KernelOut(NamedTuple):
+    """A round's own outputs, in the buffers a caller passed as ``out``:
+    the lanes' tops before the tile clear, their first solutions and the
+    eight rows of ``lane_out``; ``tile`` and ``words`` (of each lane's
+    flattened board, the leading ones the tile clear zeroes) are what
+    :func:`_kernel_outputs` takes to make the 13-tuple of them."""
+
+    top: torch.Tensor
+    sol: torch.Tensor
+    lane_out: torch.Tensor
+    tile: int
+    words: int
+
+
+def _tile_clear(top: torch.Tensor, live_rounds: torch.Tensor, tile: int,
+                words: int) -> torch.Tensor:
+    """Clear the first ``words`` words of the flattened top of each lane
+    that was dead in a round its ``tile``-lane tile still ran (fewer live
+    rounds than the tile's busiest lane)."""
+    lanes = top.shape[0]
+    if lanes == 0:
+        return top
+    t = min(tile, lanes)
+    if lanes % t:
+        raise ValueError(f"lanes {lanes} not a multiple of tile {t}")
+    per_tile = live_rounds.reshape(-1, t)
+    dead = (per_tile < per_tile.amax(1, keepdim=True)).reshape(-1, 1)
+    flat = top.reshape(lanes, -1)
+    return torch.cat([flat[:, :words].masked_fill(dead, 0), flat[:, words:]], 1).reshape(top.shape)
+
+
+def _kernel_outputs(top_out, stack, base, sol, lane_out, tile: int, words: int):
+    """The 13-tuple from a round's own outputs.  ``lane_out`` rows (the
+    layout both K2 and K3 write): has, count, solved, overflow, nodes,
+    sols, live rounds, sweeps."""
+    _, cnt, _, _, nodes, sols, live, sweeps = lane_out.unbind(0)
+    has, _, solved, over = (lane_out[:4] > 0).unbind(0)
+    steps_max = live.max() if live.numel() else torch.zeros(
+        (), dtype=torch.int32, device=live.device)
+    return (
+        _tile_clear(top_out, live, tile, words), stack, has, base.clone(), cnt, solved,
+        sol, over, nodes, sols, live, sweeps.sum(dtype=torch.int32), steps_max,
+    )
+
+
+def _fused_live(fs: Frontier) -> torch.Tensor:
+    n_jobs = fs.solved.shape[0]
+    job_safe = torch.clamp(fs.job, 0, n_jobs - 1).long()
+    return fs.has_top & (fs.job >= 0) & ~fs.solved[job_safe]
+
+
+def _fused_bookkeeping(fs: Frontier, out: tuple, config) -> Frontier:
+    """The job bookkeeping after one dispatch whose 13-tuple is ``out``:
+    harvest the solutions, purge the solved jobs' lanes, steal, count.
+    Device ops only, no host read."""
+    n_jobs = fs.solved.shape[0]
+    n_lanes = fs.has_top.shape[0]
+    dev = fs.has_top.device
+    job_safe = torch.clamp(fs.job, 0, n_jobs - 1).long()
+    (top, stack, has_top, base, count, lane_solved, lane_sol, lane_over, nodes_d,
+     sols_d, liv_d, sweeps_t, steps_m) = out
+
+    live_jobs = fs.job >= 0
+    lane_ids = torch.arange(n_lanes, dtype=torch.int32, device=dev)
+    no_lane = torch.full_like(lane_ids, n_lanes)
+    no_job = torch.full_like(lane_ids, n_jobs)
+    if config.count_all:
+        sol_count = _scatter_add(fs.sol_count, torch.where(live_jobs, fs.job, no_job), sols_d)
+        had_sol = fs.sol_count > 0
+        eligible = lane_solved & live_jobs & ~had_sol[job_safe]
+    else:
+        had_sol = fs.solved
+        eligible = lane_solved & live_jobs & ~fs.solved[job_safe]
+    first = _scatter_min(
+        n_jobs, n_lanes, torch.where(eligible, fs.job, no_job),
+        torch.where(eligible, lane_ids, no_lane),
+    )
+    newly = (first < n_lanes) & ~had_sol
+    sol_rows = lane_sol[torch.clamp(first, 0, n_lanes - 1).long()]
+    solution = torch.where(newly[:, None, None], sol_rows, fs.solution)
+    if config.count_all:
+        solved = fs.solved
+    else:
+        solved = fs.solved | newly
+        sol_count = solved.to(torch.int32)
+
+    overflowed = _set_rows(fs.overflowed, torch.where(lane_over & live_jobs, fs.job, no_job), True)
+    nodes = _scatter_add(fs.nodes, torch.where(live_jobs, fs.job, no_job), nodes_d)
+
+    job_live = live_jobs & ~solved[job_safe]
+    has_top = has_top & job_live
+    count = torch.where(job_live, count, torch.zeros_like(count))
+    job = fs.job
+    n_steals = torch.zeros((), dtype=torch.int32, device=dev)
+    if config.steal:
+        top, has_top, base, count, job, n_steals = _steal(
+            top, has_top, stack, base, count, job, job_live, gang=config.steal_gang,
+        )
+
+    return fs._replace(
+        top=top, stack=stack, has_top=has_top, base=base, count=count, job=job,
+        solved=solved, solution=solution, overflowed=overflowed, nodes=nodes,
+        sol_count=sol_count, steps=fs.steps + steps_m, sweeps=fs.sweeps + sweeps_t,
+        expansions=fs.expansions + nodes_d.sum(dtype=torch.int32),
+        steals=fs.steals + n_steals, lane_rounds=fs.lane_rounds + liv_d,
+    )
+
+
+def _fused_go(fs: Frontier, limit) -> torch.Tensor:
+    """The fused loop's condition, a 0-d bool tensor: a lane is live and
+    ``steps`` is under ``limit`` (``ops/cuda_step._step_limit``)."""
+    return _fused_live(fs).any() & (fs.steps < limit)
+
+
+# -- the kernel ------------------------------------------------------------------
 
 
 def work_words(lanes: int, jobs: int) -> int:
@@ -64,7 +188,7 @@ def new_work(lanes: int, jobs: int, device) -> torch.Tensor:
     return work
 
 
-def _check(state: FusedFrontier, kout: KernelOut, limit, go, work, config) -> tuple:
+def _check(state: Frontier, kout: KernelOut, limit, go, work, config) -> tuple:
     """Raise on what the kernel does not take; returns ``(lanes, jobs,
     slots, words, clear_words, tile)``."""
     lanes, jobs = state.has_top.shape[0], state.solved.shape[0]
@@ -108,7 +232,7 @@ def _check(state: FusedFrontier, kout: KernelOut, limit, go, work, config) -> tu
         raise ValueError(f"lanes {lanes} not a multiple of tile {tile}")
     if lanes > BLOCK and BLOCK % tile:
         raise ValueError(f"tile {tile} does not divide a block of {BLOCK} lanes")
-    clear = words if kout.words is None else kout.words
+    clear = kout.words
     if not 0 <= clear <= words:
         raise ValueError(f"the tile clear's words {clear} outside 0..{words}")
     gang = int(config.steal_gang) if config.steal else 0
@@ -132,7 +256,7 @@ def prepare() -> None:
     cuda_build.check(_lib().dsst_bookkeep_prepare(), "dsst_bookkeep_prepare")
 
 
-def bookkeep_cuda(state: FusedFrontier, kout: KernelOut, limit: torch.Tensor, go: torch.Tensor,
+def bookkeep_cuda(state: Frontier, kout: KernelOut, limit: torch.Tensor, go: torch.Tensor,
                   work: torch.Tensor, config) -> None:
     """Launch the bookkeeping on CUDA tensors (no host sync), in place:
     ``state`` (not its ``top``), ``kout.top``, ``go`` and ``work``.
@@ -158,17 +282,11 @@ def bookkeep_cuda(state: FusedFrontier, kout: KernelOut, limit: torch.Tensor, go
 bookkeep_cuda.launches = 0
 
 
-def bookkeep_plain(state: FusedFrontier, kout: KernelOut, limit, go: torch.Tensor, work,
+def bookkeep_plain(state: Frontier, kout: KernelOut, limit, go: torch.Tensor, work,
                    config) -> None:
-    """The plain version, on any device: the eager chain, its results
+    """The plain version, on any device: the plain chain, its results
     copied into the buffers :func:`bookkeep_cuda` writes (``work`` is not
     read)."""
-    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
-        _fused_bookkeeping,
-        _fused_go,
-        _kernel_outputs,
-    )
-
     out = _kernel_outputs(kout.top, state.stack, state.base, kout.sol, kout.lane_out, kout.tile,
                           kout.words)
     new = _fused_bookkeeping(state, out, config)
@@ -176,4 +294,3 @@ def bookkeep_plain(state: FusedFrontier, kout: KernelOut, limit, go: torch.Tenso
     for buf, val in zip(state._replace(top=kout.top), new):
         if val is not buf:
             buf.copy_(val)
-

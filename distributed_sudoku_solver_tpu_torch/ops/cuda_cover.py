@@ -4,9 +4,10 @@ Port of the JAX package's ``ops/pallas_cover.py``.  :func:`cover_fused_rounds`
 advances every lane up to ``k_steps`` cover rounds (propagate to the
 fixpoint, classify, capture the first solution, branch on the MRV column,
 push/pop on the lane's circular stack, overflow) and returns the 13-tuple
-of ``ops/cuda_step.fused_rounds``, so the fused driver (harvest, purge,
-steal between dispatches) serves both kernels through its ``rounds_fn``
-seam.
+of ``ops/cuda_step.fused_rounds``, or with ``out=`` a ``KernelOut``, as
+K2's do.  :func:`_rounds_fn` makes K3's round function, which enters the
+fused loop (``ops/cuda_step._run_fused``: harvest, purge, steal between
+dispatches) as K2's does.
 
 Layout: lane-first, ``top`` ``int32[L, 1, D]`` and ``stack``
 ``int32[L, S, 1, D]`` (uint32 patterns, the packed avail/covered words of
@@ -43,8 +44,6 @@ from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
     _plain_rounds,
     _round_outputs,
     _run_fused,
-    frontier_to_fused,
-    fused_to_frontier,
 )
 from distributed_sudoku_solver_tpu_torch.ops.frontier import FUSED_STEPS_LINKED, init_frontier
 
@@ -149,13 +148,14 @@ def _check_round_inputs(top, stack, has_top, base, count, problem: ExactCoverCSP
 
 def cover_fused_rounds_plain(
     top, stack, has_top, base, count, problem: ExactCoverCSP, max_sweeps: int = 64,
-    k_steps: int = 8, tile: int = 128, count_mode: bool = False,
+    k_steps: int = 8, tile: int = 128, count_mode: bool = False, out=None,
 ):
-    """Plain torch re-statement of the round kernel, on any device."""
+    """Plain torch re-statement of the round kernel, on any device; ``out``
+    as for :func:`cover_fused_rounds_cuda`."""
     _check_round_inputs(top, stack, has_top, base, count, problem)
     return _plain_rounds(
         top, stack, has_top, base, count, lambda b: problem.propagate_per_lane(b, max_sweeps),
-        problem.status, problem.branch, k_steps, tile, count_mode, words=problem.w_rows,
+        problem.status, problem.branch, k_steps, tile, count_mode, problem.w_rows, out,
     )
 
 
@@ -187,7 +187,7 @@ def _call(fn, stream, top, stack, has_top, base, count, problem, max_sweeps, k_s
           count_mode, out=None):
     """Marshal the arguments of ``dsst_cover_rounds`` (csrc/cover.cu) from
     tensors on one device, call ``fn`` with them and build the 13-tuple
-    (with ``out``, the :class:`~.cuda_step.KernelOut` in its buffers)."""
+    (with ``out``, the ``KernelOut`` in its buffers)."""
     if not (top.is_contiguous() and stack.is_contiguous()):
         raise ValueError("cover_fused_rounds_cuda needs contiguous top and stack")
     if not (0 <= k_steps < 2**31 and 0 <= max_sweeps < 2**31):
@@ -267,13 +267,19 @@ def cover_fused_rounds(top, stack, has_top, base, count, problem: ExactCoverCSP,
 
 
 def _rounds_fn(problem: ExactCoverCSP, config, lanes: int):
+    """K3's round function for the fused loop on ``lanes`` lanes, as
+    ``ops/cuda_step._rounds_fn`` makes K2's: :func:`cover_fused_rounds`
+    looked up at each call, with the tile clear's ``words`` (the
+    available-row words) and ``tile`` stated."""
+
     def rounds(f, **kw):
         return cover_fused_rounds(
             f.top, f.stack, f.has_top, f.base, f.count, problem,
             max_sweeps=config.max_sweeps, k_steps=config.fused_steps,
-            tile=min(128, lanes), count_mode=config.count_all, **kw,
+            tile=rounds.tile, count_mode=config.count_all, **kw,
         )
 
+    rounds.words, rounds.tile = problem.w_rows, min(128, lanes)
     return rounds
 
 
@@ -294,10 +300,8 @@ def advance_cover_fused(state, step_limit, problem: ExactCoverCSP, config):
     the JAX package."""
     config = config.with_fused_steps(FUSED_STEPS_LINKED)
     limit = min(int(step_limit), config.max_steps)
-    lanes = state.has_top.shape[0]
-    fs = _run_fused(frontier_to_fused(state), None, config, limit,
-                    rounds_fn=_rounds_fn(problem, config, lanes))
-    return fused_to_frontier(fs)
+    return _run_fused(state, config, limit,
+                      _rounds_fn(problem, config, state.has_top.shape[0]))
 
 
 def cover_fused_frontier(states0: torch.Tensor, problem: ExactCoverCSP, config):
@@ -309,6 +313,4 @@ def cover_fused_frontier(states0: torch.Tensor, problem: ExactCoverCSP, config):
     lanes = cover_fused_lanes(config.resolve_lanes(states0.shape[0]))
     config = dataclasses.replace(config, lanes=lanes)
     state = init_frontier(states0, config)
-    fs = _run_fused(frontier_to_fused(state), None, config, config.max_steps,
-                    rounds_fn=_rounds_fn(problem, config, lanes))
-    return fused_to_frontier(fs)
+    return _run_fused(state, config, config.max_steps, _rounds_fn(problem, config, lanes))

@@ -28,16 +28,20 @@ per-tile sweeps), so it is left out of bit-equality with the JAX path.
 
 :func:`fused_rounds` takes the plain version (:func:`fused_rounds_plain`)
 only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  ``fused_rounds_cuda.launches`` counts kernel launches.
+raises.  ``fused_rounds_cuda.launches`` counts kernel launches.  Every
+round function, K2's and K3's, plain or kernel, takes ``out=`` (three
+buffers: tops, solutions, ``lane_out``): given it, the function writes
+its own outputs there and returns a ``KernelOut``; without it, the
+13-tuple (:func:`_round_outputs`).
 
-The fused loop (:func:`_run_fused`) dispatches the kernel and then does the
-job bookkeeping between dispatches (harvest, purge, steal, counters).  On
-CUDA tensors that bookkeeping is a hand-written kernel
-(``ops/cuda_bookkeep.py``, ``csrc/bookkeep.cu``) replayed from a captured
-CUDA graph, one replay a dispatch (:class:`_RoundGraph`); the round kernel
-itself is still launched by a Python call through :func:`fused_rounds`
-every dispatch.  :func:`_fused_bookkeeping` stays the plain version: the
-CPU's path and the kernel's reference.
+The fused loop (:func:`_run_fused`) has one driver on every device
+(:class:`_Rounds`): each dispatch calls the round function (K2's
+:func:`_rounds_fn`, or K3's from ``ops/cuda_cover.py``) on the driver's
+buffers, then runs the job bookkeeping (harvest, purge, steal, counters)
+in place, ``ops/cuda_bookkeep.py``.  On CUDA the bookkeeping is a
+hand-written kernel (``csrc/bookkeep.cu``) replayed from a captured CUDA
+graph; on the CPU it is the plain version, called directly.
+:func:`_fused_round` is the functional reference step.
 """
 
 from __future__ import annotations
@@ -45,8 +49,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -62,13 +64,17 @@ from distributed_sudoku_solver_tpu_torch.ops.bitmask import (
     or_reduce,
     popcount,
 )
+from distributed_sudoku_solver_tpu_torch.ops.cuda_bookkeep import (
+    KernelOut,
+    _fused_bookkeeping,
+    _fused_go,
+    _fused_live,
+    _kernel_outputs,
+)
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     FUSED_STEPS_DEVICE,
-    _scatter_add,
-    _scatter_min,
+    Frontier,
     _scatter_max_bool,
-    _set_rows,
-    _steal,
     _write_rows,
     chunk_status,
     init_frontier,
@@ -104,24 +110,6 @@ def _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_ru
             raise TypeError(f"{name} must be torch.int32, got {v.dtype}")
 
 
-def _tile_clear(top: torch.Tensor, live_rounds: torch.Tensor, tile: int,
-                words: int | None = None) -> torch.Tensor:
-    """Clear the top of each lane that was dead in a round its ``tile``-lane
-    tile still ran (fewer live rounds than the tile's busiest lane); with
-    ``words``, only the first ``words`` entries of the last axis."""
-    lanes = top.shape[0]
-    if lanes == 0:
-        return top
-    t = min(tile, lanes)
-    if lanes % t:
-        raise ValueError(f"lanes {lanes} not a multiple of tile {t}")
-    per_tile = live_rounds.reshape(-1, t)
-    dead = (per_tile < per_tile.amax(1, keepdim=True)).reshape(-1, *([1] * (top.ndim - 1)))
-    if words is None:
-        return top.masked_fill(dead, 0)
-    return torch.cat([top[..., :words].masked_fill(dead, 0), top[..., words:]], dim=-1)
-
-
 def status_full(cand: torch.Tensor, geom: Geometry) -> tuple[torch.Tensor, torch.Tensor]:
     """The round's classification: ``ops.propagate.board_status`` with the
     duplicate test as the JAX fused kernel states it (a decided digit seen
@@ -137,11 +125,13 @@ def status_full(cand: torch.Tensor, geom: Geometry) -> tuple[torch.Tensor, torch
 
 
 def _plain_rounds(top, stack, has_top, base, count, propagate, status, branch,
-                  k_steps: int, tile: int, count_mode: bool, words: int | None = None):
+                  k_steps: int, tile: int, count_mode: bool, words: int, out=None):
     """The round loop of the plain versions of K2 and K3.  The family gives
     ``propagate(tops) -> (tops, per-lane sweeps)``, ``status(tops) ->
     (solved, contradiction)`` and ``branch(tops) -> (guess, rest)``;
-    ``words`` goes to :func:`_tile_clear`."""
+    ``words`` goes to the tile clear, ``out`` to :func:`_round_outputs`."""
+    if out is not None:
+        out = _out_buffers(top, out)
     lanes, s = stack.shape[:2]
     dev = top.device
     lane_idx = torch.arange(lanes, dtype=torch.int32, device=dev)
@@ -188,20 +178,7 @@ def _plain_rounds(top, stack, has_top, base, count, propagate, status, branch,
         count = count + can_push.to(torch.int32) - can_pop.to(torch.int32)
     lane_out = torch.stack([has.to(torch.int32), count, solved_f.to(torch.int32),
                             over_f.to(torch.int32), nodes, sols, live_r, sweeps])
-    return _kernel_outputs(top, stack, base, sol, lane_out, tile, words)
-
-
-class KernelOut(NamedTuple):
-    """A round's own outputs, in the buffers a caller passed as ``out``:
-    the lanes' tops before the tile clear, their first solutions and the
-    eight rows of ``lane_out``; ``tile`` and ``words`` are what
-    :func:`_kernel_outputs` takes to make the 13-tuple of them."""
-
-    top: torch.Tensor
-    sol: torch.Tensor
-    lane_out: torch.Tensor
-    tile: int
-    words: int | None
+    return _round_outputs(top, stack, base, sol, lane_out, tile, words, out)
 
 
 def _out_buffers(top: torch.Tensor, out=None) -> tuple:
@@ -220,26 +197,16 @@ def _out_buffers(top: torch.Tensor, out=None) -> tuple:
     return tuple(out)
 
 
-def _round_outputs(top, stack, base, sol, lane_out, tile: int, words, out):
-    """A kernel's returns: the 13-tuple (:func:`_kernel_outputs`), or with
-    ``out`` (where the kernel wrote its own outputs) a :class:`KernelOut`."""
+def _round_outputs(top, stack, base, sol, lane_out, tile: int, words: int, out):
+    """A round's returns: the 13-tuple (:func:`_kernel_outputs`), or with
+    ``out`` a :class:`KernelOut` of those buffers, which a kernel wrote
+    and into which a plain version copies its outputs."""
     if out is None:
         return _kernel_outputs(top, stack, base, sol, lane_out, tile, words)
+    for buf, val in zip(out, (top, sol, lane_out)):
+        if buf is not val:
+            buf.copy_(val)
     return KernelOut(*out, tile, words)
-
-
-def _kernel_outputs(top_out, stack, base, sol, lane_out, tile: int, words: int | None = None):
-    """The 13-tuple from a round's own outputs.  ``lane_out`` rows (the
-    layout both K2 and K3 write): has, count, solved, overflow, nodes,
-    sols, live rounds, sweeps."""
-    _, cnt, _, _, nodes, sols, live, sweeps = lane_out.unbind(0)
-    has, _, solved, over = (lane_out[:4] > 0).unbind(0)
-    steps_max = live.max() if live.numel() else torch.zeros(
-        (), dtype=torch.int32, device=live.device)
-    return (
-        _tile_clear(top_out, live, tile, words), stack, has, base.clone(), cnt, solved,
-        sol, over, nodes, sols, live, sweeps.sum(dtype=torch.int32), steps_max,
-    )
 
 
 def head_branch_full(cand: torch.Tensor, geom: Geometry, rule: str):
@@ -261,9 +228,10 @@ def head_branch_full(cand: torch.Tensor, geom: Geometry, rule: str):
 def fused_rounds_plain(
     top, stack, has_top, base, count, geom: Geometry, rules: str = "extended",
     branch_rule: str = "minrem", max_sweeps: int = 64, k_steps: int = 8,
-    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2,
+    tile: int = 128, count_mode: bool = False, sweep_unroll: int = 2, out=None,
 ):
-    """Plain torch re-statement of the round kernel, on any device."""
+    """Plain torch re-statement of the round kernel, on any device; ``out``
+    as for :func:`fused_rounds_cuda`."""
     _check_round_inputs(top, stack, has_top, base, count, geom, rules, branch_rule)
     if ordering.is_head_rule(branch_rule):
         branch = lambda b: head_branch_full(b, geom, branch_rule)  # noqa: E731
@@ -272,7 +240,7 @@ def fused_rounds_plain(
     return _plain_rounds(
         top, stack, has_top, base, count,
         lambda b: propagate_per_board(b, geom, max_sweeps, rules, unroll=sweep_unroll),
-        lambda b: status_full(b, geom), branch, k_steps, tile, count_mode,
+        lambda b: status_full(b, geom), branch, k_steps, tile, count_mode, geom.n * geom.n, out,
     )
 
 
@@ -344,7 +312,7 @@ def _launch(variant, top, stack, has_top, base, count, geom, rules, branch_rule,
         max_sweeps, k_steps, int(count_mode), sweep_unroll,
         None if params is None else params.ctypes.data, stream)
     cuda_build.check(err, "dsst_fused_rounds")
-    return _round_outputs(top_out, stack, base_i, sol, lane_out, tile, None, out)
+    return _round_outputs(top_out, stack, base_i, sol, lane_out, tile, geom.n * geom.n, out)
 
 
 def fused_rounds_cuda(
@@ -355,8 +323,8 @@ def fused_rounds_cuda(
     """Launch K2 on CUDA tensors (no host sync); same returns as the plain
     version.  With ``out`` (three buffers: tops, solutions, ``lane_out``)
     the kernel writes its own outputs there and the call returns them as a
-    :class:`KernelOut`, for a caller that makes the 13-tuple later
-    (:class:`_RoundGraph`, inside its graph)."""
+    :class:`KernelOut`, for a caller that makes the 13-tuple later (the
+    fused loop's bookkeeping)."""
     res = _launch("", top, stack, has_top, base, count, geom, rules, branch_rule,
                   max_sweeps, k_steps, tile, count_mode, sweep_unroll, out)
     fused_rounds_cuda.launches += 1
@@ -404,43 +372,6 @@ def fused_rounds(top, stack, has_top, base, count, geom: Geometry, **kw):
 # -- driver: job bookkeeping and stealing between dispatches ---------------------
 
 
-class FusedFrontier(NamedTuple):
-    """Loop state of the fused driver: the JAX ``FusedFrontier`` fields,
-    lane-first (``top`` / ``stack`` / ``solution`` for its boards-last
-    ``top_t`` / ``stack_t`` / ``solution_t``)."""
-
-    top: torch.Tensor  # int32[L, n, n]
-    stack: torch.Tensor  # int32[L, S, n, n]
-    has_top: torch.Tensor  # bool[L]
-    base: torch.Tensor  # int32[L]
-    count: torch.Tensor  # int32[L]
-    job: torch.Tensor  # int32[L]
-    solved: torch.Tensor  # bool[J]
-    solution: torch.Tensor  # int32[J, n, n]
-    overflowed: torch.Tensor  # bool[J]
-    nodes: torch.Tensor  # int32[J]
-    sol_count: torch.Tensor  # int32[J]
-    steps: torch.Tensor  # int32 0-d
-    sweeps: torch.Tensor  # int32 0-d
-    expansions: torch.Tensor  # int32 0-d
-    steals: torch.Tensor  # int32 0-d
-    lane_rounds: torch.Tensor  # int32[L]
-
-
-def frontier_to_fused(state) -> FusedFrontier:
-    """``ops.frontier.Frontier`` -> :class:`FusedFrontier` (same tensors)."""
-    d = state._asdict()
-    return FusedFrontier(**{k: d[k] for k in FusedFrontier._fields})
-
-
-def fused_to_frontier(fs: FusedFrontier):
-    """:class:`FusedFrontier` -> ``ops.frontier.Frontier`` (same tensors)."""
-    from distributed_sudoku_solver_tpu_torch.ops.frontier import Frontier
-
-    d = fs._asdict()
-    return Frontier(**{k: d[k] for k in Frontier._fields})
-
-
 def fused_lanes(n_lanes: int, n: int, stack_slots: int) -> int:
     """Round ``n_lanes`` up to the lane count the fused path uses.
 
@@ -481,93 +412,29 @@ def max_fused_lanes(n: int, stack_slots: int) -> int:
     return _K2_MAX_LANES
 
 
-def _fused_live(fs) -> torch.Tensor:
-    n_jobs = fs.solved.shape[0]
-    job_safe = torch.clamp(fs.job, 0, n_jobs - 1).long()
-    return fs.has_top & (fs.job >= 0) & ~fs.solved[job_safe]
+def _rounds_fn(geom: Geometry, config, lanes: int):
+    """K2's round function for the fused loop on ``lanes`` lanes: a
+    frontier (and ``out=``) -> the returns of :func:`fused_rounds`, looked
+    up in this module at each call (the benchmark's K2 replay patches it).
+    It states the tile clear's ``words`` (the whole board) and its
+    ``tile``, which the loop's graph bakes in."""
 
-
-def _round_kernel(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None,
-                  out=None) -> tuple:
-    """One dispatch of the round kernel on ``fs``: the 13-tuple of
-    :func:`fused_rounds`, or with ``out`` its :class:`KernelOut`.
-    ``rounds_fn`` (FusedFrontier, ``out=`` -> the same) swaps in another
-    round kernel: the exact-cover kernel (``ops/cuda_cover.py``) shares
-    harvest, purge and steal this way; ``None`` dispatches the Sudoku
-    kernel on ``geom`` through ``fused_rounds``, looked up in this module
-    at call time."""
-    kw = {} if out is None else {"out": out}
-    if rounds_fn is not None:
-        return rounds_fn(fs, **kw)
-    return fused_rounds(
-        fs.top, fs.stack, fs.has_top, fs.base, fs.count, geom,
-        rules=config.rules, branch_rule=config.branch, max_sweeps=config.max_sweeps,
-        k_steps=config.fused_steps, tile=min(128, fs.has_top.shape[0]),
-        count_mode=config.count_all, sweep_unroll=config.fused_sweep_unroll, **kw,
-    )
-
-
-def _fused_bookkeeping(fs: FusedFrontier, out: tuple, config) -> FusedFrontier:
-    """The job bookkeeping after one dispatch whose 13-tuple is ``out``:
-    harvest the solutions, purge the solved jobs' lanes, steal, count.
-    Device ops only, no host read, so that a CUDA graph can capture it."""
-    n_jobs = fs.solved.shape[0]
-    n_lanes = fs.has_top.shape[0]
-    dev = fs.has_top.device
-    job_safe = torch.clamp(fs.job, 0, n_jobs - 1).long()
-    (top, stack, has_top, base, count, lane_solved, lane_sol, lane_over, nodes_d,
-     sols_d, liv_d, sweeps_t, steps_m) = out
-
-    live_jobs = fs.job >= 0
-    lane_ids = torch.arange(n_lanes, dtype=torch.int32, device=dev)
-    no_lane = torch.full_like(lane_ids, n_lanes)
-    no_job = torch.full_like(lane_ids, n_jobs)
-    if config.count_all:
-        sol_count = _scatter_add(fs.sol_count, torch.where(live_jobs, fs.job, no_job), sols_d)
-        had_sol = fs.sol_count > 0
-        eligible = lane_solved & live_jobs & ~had_sol[job_safe]
-    else:
-        had_sol = fs.solved
-        eligible = lane_solved & live_jobs & ~fs.solved[job_safe]
-    first = _scatter_min(
-        n_jobs, n_lanes, torch.where(eligible, fs.job, no_job),
-        torch.where(eligible, lane_ids, no_lane),
-    )
-    newly = (first < n_lanes) & ~had_sol
-    sol_rows = lane_sol[torch.clamp(first, 0, n_lanes - 1).long()]
-    solution = torch.where(newly[:, None, None], sol_rows, fs.solution)
-    if config.count_all:
-        solved = fs.solved
-    else:
-        solved = fs.solved | newly
-        sol_count = solved.to(torch.int32)
-
-    overflowed = _set_rows(fs.overflowed, torch.where(lane_over & live_jobs, fs.job, no_job), True)
-    nodes = _scatter_add(fs.nodes, torch.where(live_jobs, fs.job, no_job), nodes_d)
-
-    job_live = live_jobs & ~solved[job_safe]
-    has_top = has_top & job_live
-    count = torch.where(job_live, count, torch.zeros_like(count))
-    job = fs.job
-    n_steals = torch.zeros((), dtype=torch.int32, device=dev)
-    if config.steal:
-        top, has_top, base, count, job, n_steals = _steal(
-            top, has_top, stack, base, count, job, job_live, gang=config.steal_gang,
+    def rounds(f, **kw):
+        return fused_rounds(
+            f.top, f.stack, f.has_top, f.base, f.count, geom,
+            rules=config.rules, branch_rule=config.branch, max_sweeps=config.max_sweeps,
+            k_steps=config.fused_steps, tile=rounds.tile, count_mode=config.count_all,
+            sweep_unroll=config.fused_sweep_unroll, **kw,
         )
 
-    return FusedFrontier(
-        top=top, stack=stack, has_top=has_top, base=base, count=count, job=job,
-        solved=solved, solution=solution, overflowed=overflowed, nodes=nodes,
-        sol_count=sol_count, steps=fs.steps + steps_m, sweeps=fs.sweeps + sweeps_t,
-        expansions=fs.expansions + nodes_d.sum(dtype=torch.int32),
-        steals=fs.steals + n_steals, lane_rounds=fs.lane_rounds + liv_d,
-    )
+    rounds.words, rounds.tile = geom.n * geom.n, min(128, lanes)
+    return rounds
 
 
-def _fused_round(fs: FusedFrontier, geom: Geometry | None, config, rounds_fn=None) -> FusedFrontier:
-    """One kernel dispatch (``fused_steps`` rounds) + the job bookkeeping,
-    eagerly (``rounds_fn``: see :func:`_round_kernel`)."""
-    return _fused_bookkeeping(fs, _round_kernel(fs, geom, config, rounds_fn), config)
+def _fused_round(fs: Frontier, config, rounds_fn) -> Frontier:
+    """One dispatch of ``rounds_fn`` (``fused_steps`` rounds) and the job
+    bookkeeping, functionally: the fused loop's reference step."""
+    return _fused_bookkeeping(fs, rounds_fn(fs), config)
 
 
 def _step_limit(limit, max_steps: int):
@@ -579,124 +446,101 @@ def _step_limit(limit, max_steps: int):
     return min(int(limit), max_steps)
 
 
-def _fused_go(fs: FusedFrontier, limit) -> torch.Tensor:
-    """The loop condition of :func:`_run_fused`, a 0-d bool tensor: a lane
-    is live and ``steps`` is under ``limit`` (a :func:`_step_limit`)."""
-    return _fused_live(fs).any() & (fs.steps < limit)
+class _Rounds:
+    """The fused loop's driver over static buffers: ``state``, the
+    frontier between dispatches (the round function reads its lanes
+    there), the round function's own outputs (``sol``, ``lane_out`` and a
+    top; ``kout`` is the :class:`KernelOut` it returned), ``limit``, ``go``
+    and the bookkeeping kernel's scratch ``work``.  Each dispatch calls the
+    round function with ``out=`` those buffers, then runs the bookkeeping
+    in place, which writes the next frontier into ``state`` and the loop
+    condition into ``go``.
 
-
-class _RoundGraph:
-    """One dispatch's bookkeeping and the next loop condition
-    (``ops/cuda_bookkeep.bookkeep_cuda``: the hand-written kernel of
-    ``csrc/bookkeep.cu``, three launches), captured as a CUDA
-    graph over static buffers: ``state``, the frontier between dispatches
-    (the round kernel reads its lanes there), the round kernel's own
-    outputs (``sol``, ``lane_out`` and a top; ``kout`` is the
-    :class:`KernelOut` it returned), ``limit``, ``go`` and the bookkeeping
-    kernel's scratch ``work``.  Each replay
-    writes the next frontier into ``state`` and the condition into ``go``.
-    The round kernel stays outside the graph: it is launched by a Python
-    call each dispatch.
-
-    The frontier's top and the kernel's output top are two buffers,
-    ``tops``, that swap each dispatch: the kernel reads one and writes the
+    The frontier's top and the round's output top are two buffers,
+    ``tops``, that swap each dispatch: the round reads one and writes the
     other, which the bookkeeping then edits in place and ``state`` takes
-    as its top, so no top is copied.  So there are two graphs, one for
-    each way round.  Both are captured on the first :meth:`dispatch_round`
-    (the kernels loaded first), on a side stream, with
-    ``capture_error_mode="thread_local"`` (other threads may copy and
-    launch on the card meanwhile).  A capture that fails raises
-    ``KernelError``.  Each replay counts one run of the bookkeeping in
-    ``bookkeep_cuda.launches``."""
+    as its top, so no top is copied.
 
-    graph = True
+    The device decides two things.  On the CPU the bookkeeping is
+    ``bookkeep_plain``, called directly.  On CUDA it is ``bookkeep_cuda``
+    (``csrc/bookkeep.cu``, three launches), captured as two CUDA graphs,
+    one each way round, on the first :meth:`dispatch_round` (the kernels
+    loaded first), on a side stream, with ``capture_error_mode=
+    "thread_local"`` (other threads may copy and launch on the card
+    meanwhile); a capture that fails raises ``KernelError``.  Each replay
+    counts one run in ``bookkeep_cuda.launches`` and one ``fused.graph``.
+    The round function stays outside the graph: it is called from Python
+    each dispatch."""
 
-    def __init__(self, fs: FusedFrontier):
+    def __init__(self, fs: Frontier):
         dev = fs.has_top.device
-        self.state = FusedFrontier(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in fs))
+        lanes, jobs = fs.has_top.shape[0], fs.solved.shape[0]
+        self.captured = dev.type != "cpu"
+        self.state = Frontier(*(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in fs))
         self.tops = (self.state.top, torch.empty_like(self.state.top))
         self.sol = torch.empty_like(self.state.top)
-        self.lane_out = torch.empty((8, fs.has_top.shape[0]), dtype=torch.int32, device=dev)
+        self.lane_out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
         self.limit = torch.zeros((), dtype=torch.int64, device=dev)
         self.go = torch.zeros((), dtype=torch.bool, device=dev)
-        self.work = cuda_bookkeep.new_work(fs.has_top.shape[0], fs.solved.shape[0], dev)
+        self.work = cuda_bookkeep.new_work(lanes, jobs, dev) if self.captured else None
         self.kout: KernelOut | None = None
-        self.replays = None  # by the index in ``tops`` of the frontier's top
+        self.graphs = None  # by the index in ``tops`` of the frontier's top
         self.stream = None  # where the last call's reads of ``state`` were enqueued
 
-    def load(self, fs: FusedFrontier, limit) -> None:
+    def load(self, fs: Frontier, limit) -> None:
         """Start a call: the caller's frontier and limit into the buffers."""
-        stream = torch.cuda.current_stream(self.go.device)
-        if self.stream is not None and self.stream != stream:
-            stream.wait_stream(self.stream)
-        self.stream = stream
+        if self.captured:
+            stream = torch.cuda.current_stream(self.go.device)
+            if self.stream is not None and self.stream != stream:
+                stream.wait_stream(self.stream)
+            self.stream = stream
         torch._foreach_copy_(list(self.state), list(fs))
         self.limit.fill_(limit)
 
-    def dispatch_round(self, geom: Geometry | None, config, rounds_fn) -> None:
-        """One dispatch: the round kernel on the buffers by a Python call
-        (:func:`_round_kernel`), writing into ``tops``, ``sol`` and
-        ``lane_out``, then the replay."""
+    def dispatch_round(self, rounds_fn, config, rec) -> None:
+        """One dispatch: the round function on the buffers, writing into
+        ``tops``, ``sol`` and ``lane_out``, then the bookkeeping."""
         p = 0 if self.state.top is self.tops[0] else 1
-        self.kout = _round_kernel(self.state, geom, config, rounds_fn,
-                                  out=(self.tops[1 - p], self.sol, self.lane_out))
-        if self.replays is None:
-            self.replays = self._capture(config)
-        self.replays[p]()
+        self.kout = rounds_fn(self.state, out=(self.tops[1 - p], self.sol, self.lane_out))
+        if self.captured:
+            if self.graphs is None:
+                self.graphs = self._capture(config)
+            self.graphs[p].replay()
+            cuda_bookkeep.bookkeep_cuda.launches += 1
+            rec.count("fused.graph")
+        else:
+            self._bookkeep(p, config)
         self.state = self.state._replace(top=self.tops[1 - p])
 
-    def unload(self, stack: torch.Tensor) -> FusedFrontier:
+    def unload(self, stack: torch.Tensor) -> Frontier:
         """End a call: fresh tensors of the frontier, which later calls do
         not write, its stack copied into the caller's ``stack``."""
         stack.copy_(self.state.stack)
-        return FusedFrontier(*(stack if t is self.state.stack else t.clone() for t in self.state))
+        return Frontier(*(stack if t is self.state.stack else t.clone() for t in self.state))
 
     def _bookkeep(self, p: int, config) -> None:
         """The bookkeeping of a dispatch that read ``tops[p]``."""
-        cuda_bookkeep.bookkeep_cuda(self.state._replace(top=self.tops[p]),
-                                    self.kout._replace(top=self.tops[1 - p]), self.limit,
-                                    self.go, self.work, config)
+        bookkeep = cuda_bookkeep.bookkeep_cuda if self.captured else cuda_bookkeep.bookkeep_plain
+        bookkeep(self.state._replace(top=self.tops[p]), self.kout._replace(top=self.tops[1 - p]),
+                 self.limit, self.go, self.work, config)
 
     def _capture(self, config) -> tuple:
-        """Capture the bookkeeping both ways round; returns the replays."""
+        """Capture the bookkeeping both ways round; returns the graphs."""
         dev = self.go.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        replays = []
+        graphs = []
         try:
             cuda_bookkeep.prepare()
             for p in (0, 1):
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                     self._bookkeep(p, config)
-                replays.append(functools.partial(_replay_counted, graph))
+                graphs.append(graph)
         except RuntimeError as e:
             raise cuda_build.KernelError(f"capturing the fused loop's bookkeeping failed: {e}") from e
         torch.cuda.current_stream(dev).wait_stream(side)
-        return tuple(replays)
-
-
-def _replay_counted(graph) -> None:
-    graph.replay()
-    cuda_bookkeep.bookkeep_cuda.launches += 1
-
-
-class _EagerRounds:
-    """:class:`_RoundGraph`'s interface over the caller's frontier itself,
-    each dispatch an eager :func:`_fused_round`: the CPU's, where there are
-    no graphs."""
-
-    graph = False
-
-    def load(self, fs: FusedFrontier, limit) -> None:
-        self.state, self.limit = fs, limit
-
-    def dispatch_round(self, geom: Geometry | None, config, rounds_fn) -> None:
-        self.state = _fused_round(self.state, geom, config, rounds_fn)
-        self.go = _fused_go(self.state, self.limit)
-
-    def unload(self, stack: torch.Tensor) -> FusedFrontier:
-        return self.state
+        return tuple(graphs)
 
 
 class _GraphCache:
@@ -751,38 +595,31 @@ class _GraphCache:
 _GRAPHS = _GraphCache(32)
 
 
-def _graph_key(fs: FusedFrontier, config, rounds_fn) -> tuple:
-    """Everything the captured chain reads: the device, the round kernel's
-    family, ``count_all``, ``steal``, ``steal_gang``, and every field's
-    shape (lanes, jobs, stack slots, the board) and dtype."""
-    family = "K2" if rounds_fn is None else f"{rounds_fn.__module__}.{rounds_fn.__qualname__}"
-    return (str(fs.has_top.device), family, bool(config.count_all), bool(config.steal),
-            int(config.steal_gang), tuple((tuple(t.shape), t.dtype) for t in fs))
+def _graph_key(fs: Frontier, config, rounds_fn) -> tuple:
+    """Everything the captured bookkeeping reads: the device, the tile
+    clear's words and tile that ``rounds_fn`` states, ``count_all``,
+    ``steal``, ``steal_gang``, and every field's shape (lanes, jobs, stack
+    slots, the board) and dtype."""
+    return (str(fs.has_top.device), int(rounds_fn.words), int(rounds_fn.tile),
+            bool(config.count_all), bool(config.steal), int(config.steal_gang),
+            tuple((tuple(t.shape), t.dtype) for t in fs))
 
 
-def _replays(fs: FusedFrontier) -> bool:
-    """Whether :func:`_run_fused` replays its bookkeeping from a graph:
-    on CUDA tensors."""
-    return fs.has_top.device.type == "cuda"
-
-
-def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
-               rounds_fn=None) -> FusedFrontier:
-    """Dispatch fused rounds until nothing is live or ``steps`` reaches
+def _run_fused(fs: Frontier, config, limit, rounds_fn) -> Frontier:
+    """Dispatch ``rounds_fn`` (K2's :func:`_rounds_fn`, or K3's in
+    ``ops/cuda_cover.py``) until nothing is live or ``steps`` reaches
     ``limit`` or ``config.max_steps`` (overshooting by up to
     ``fused_steps - 1``, as in JAX).  ``limit`` is a host int or a 0-d
     tensor on the frontier's device; both limits are compared on the
     device.  One host sync per dispatch reads the loop condition, the
-    first before the first dispatch.  ``rounds_fn`` swaps the round
-    kernel (see :func:`_round_kernel`).
+    first before the first dispatch.
 
-    Each dispatch launches the round kernel by a Python call, then does
-    the bookkeeping.  On CUDA tensors that is a replay (:class:`_RoundGraph`,
-    one a key of :func:`_graph_key`, kept in ``_GRAPHS``): the call copies
-    ``fs`` into the graph's buffers first and returns fresh tensors, with
-    ``fs.stack`` updated in place.  On the CPU the same bookkeeping runs
-    eagerly (:class:`_EagerRounds`), and a call that dispatches nothing
-    returns ``fs`` itself on either.
+    Each dispatch calls the round function, then does the bookkeeping
+    (:class:`_Rounds`).  The call copies ``fs`` into the driver's buffers
+    first and returns fresh tensors, with ``fs.stack`` updated in place; a
+    call that dispatches nothing returns ``fs`` itself.  On CUDA the
+    driver, its captured graphs included, is kept in ``_GRAPHS``, one a key
+    of :func:`_graph_key`; on the CPU each call builds its own.
 
     Under an open call-scoped recording (``obs.trace.current()``), each
     condition read is a ``fused.sync`` span and each dispatch's enqueue,
@@ -797,16 +634,14 @@ def _run_fused(fs: FusedFrontier, geom: Geometry | None, config, limit,
     t = rec.span("fused.sync", "fetch.loop", t)
     if not go:
         return fs
-    if _replays(fs):
-        rounds = _GRAPHS.claim(_graph_key(fs, config, rounds_fn), lambda: _RoundGraph(fs))
+    if fs.has_top.device.type == "cpu":
+        driver = contextlib.nullcontext(_Rounds(fs))
     else:
-        rounds = contextlib.nullcontext(_EagerRounds())
-    with rounds as g:
+        driver = _GRAPHS.claim(_graph_key(fs, config, rounds_fn), lambda: _Rounds(fs))
+    with driver as g:
         g.load(fs, limit)
         while go:
-            g.dispatch_round(geom, config, rounds_fn)
-            if g.graph:
-                rec.count("fused.graph")
+            g.dispatch_round(rounds_fn, config, rec)
             t = rec.span("fused.dispatch", "fused.dispatch", t)
             go = bool(g.go)
             t = rec.span("fused.sync", "fetch.loop", t)
@@ -828,15 +663,12 @@ def loop_counts(counts, dispatches: str, since=None) -> dict:
     }
 
 
-def _advance_fused(state, step_limit, geom: Geometry, config):
-    config = config.with_fused_steps(FUSED_STEPS_DEVICE)
-    return fused_to_frontier(_run_fused(frontier_to_fused(state), geom, config, step_limit))
-
-
 def advance_frontier_fused(state, step_limit, geom: Geometry, config):
     """Fused twin of ``utils.checkpoint.advance_frontier`` (lane-first
     ``Frontier`` in and out; its stack is updated in place)."""
-    return _advance_fused(state, step_limit, geom, config)
+    config = config.with_fused_steps(FUSED_STEPS_DEVICE)
+    return _run_fused(state, config, step_limit,
+                      _rounds_fn(geom, config, state.has_top.shape[0]))
 
 
 def advance_frontier_fused_status(state, steps_delta, geom: Geometry, config):
@@ -848,7 +680,7 @@ def advance_frontier_fused_status(state, steps_delta, geom: Geometry, config):
     not enqueued before the previous one has finished (the device-side
     loop of ROADMAP A8 removes that read).  ``status`` is a fresh tensor
     that later dispatches never write."""
-    new = _advance_fused(state, state.steps + steps_delta, geom, config)
+    new = advance_frontier_fused(state, state.steps + steps_delta, geom, config)
     return new, chunk_status(state.steps, state.lane_rounds, new)
 
 
@@ -859,11 +691,9 @@ def advance_megastep_fused(state, chunk_steps: int, max_chunks: int, geom: Geome
     ``(state, status, chunks)``.  The host reads the loop condition once
     per dispatch and once per chunk (JAX: once per flight)."""
     config = config.with_fused_steps(FUSED_STEPS_DEVICE)
-    fs, status, chunks = megastep_chunks(
-        frontier_to_fused(state), lambda f, limit: _run_fused(f, geom, config, limit),
-        chunk_steps, max_chunks, config.max_steps,
-    )
-    return fused_to_frontier(fs), status, chunks
+    rounds = _rounds_fn(geom, config, state.has_top.shape[0])
+    return megastep_chunks(state, lambda f, limit: _run_fused(f, config, limit, rounds),
+                           chunk_steps, max_chunks, config.max_steps)
 
 
 def solve_batch_fused(grids: torch.Tensor, geom: Geometry, config):
@@ -877,7 +707,7 @@ def solve_batch_fused(grids: torch.Tensor, geom: Geometry, config):
     lanes = fused_lanes(config.resolve_lanes(n_jobs), geom.n, config.stack_slots)
     config = dataclasses.replace(config, lanes=lanes)
     state = init_frontier(encode_grid(grids, geom), config)
-    fs = _run_fused(frontier_to_fused(state), geom, config, config.max_steps)
+    fs = _run_fused(state, config, config.max_steps, _rounds_fn(geom, config, lanes))
 
     job_safe = torch.clamp(fs.job, 0, n_jobs - 1)
     job_has_work = _scatter_max_bool(n_jobs, job_safe, _fused_live(fs))

@@ -146,17 +146,16 @@ def _field_dict(state: Any) -> dict:
     return dict(state)
 
 
-def frontier_from_numpy(state: Any, device="cpu"):
-    """A JAX ``Frontier`` or ``FusedFrontier`` (numpy arrays or anything
-    ``np.asarray`` takes; a NamedTuple or a mapping) -> the port's form.
+def frontier_from_numpy(state: Any, device="cpu") -> Frontier:
+    """A JAX frontier, lane-first or in its fused driver's boards-last form
+    (numpy arrays or anything ``np.asarray`` takes; a NamedTuple or a
+    mapping) -> the port's ``Frontier``.
 
-    uint32 masks become int32 tensors with the same bits; the fused form's
-    boards-last ``top_t`` / ``stack_t`` / ``solution_t`` are transposed to
-    lane-first, and the result is then the port's ``FusedFrontier``."""
-    d = _field_dict(state)
-    fused = "top_t" in d
+    uint32 masks become int32 tensors with the same bits; the boards-last
+    ``top_t`` / ``stack_t`` / ``solution_t`` are transposed to the
+    lane-first ``top`` / ``stack`` / ``solution``."""
     out = {}
-    for k, v in d.items():
+    for k, v in _field_dict(state).items():
         a = np.asarray(v)
         if k in _BOARDS_LAST:
             k, perm = _BOARDS_LAST[k]
@@ -164,30 +163,16 @@ def frontier_from_numpy(state: Any, device="cpu"):
         if a.dtype == np.uint32:
             a = a.view(np.int32)
         out[k] = torch.from_numpy(np.array(a, order="C", copy=True)).to(device)
-    if fused:
-        from distributed_sudoku_solver_tpu_torch.ops.cuda_step import FusedFrontier
-
-        return FusedFrontier(**out)
     return Frontier(**out)
 
 
-def frontier_to_numpy(state: Any) -> dict:
-    """The port's ``Frontier`` / ``FusedFrontier`` -> a dict of numpy arrays
-    in the JAX package's layout (uint32 masks; boards-last for the fused
-    form, under its ``*_t`` names)."""
-    from distributed_sudoku_solver_tpu_torch.ops.cuda_step import FusedFrontier
-
-    fused = isinstance(state, FusedFrontier)
-    inverse = {v[0]: (k, v[1]) for k, v in _BOARDS_LAST.items()}
+def frontier_to_numpy(state: Frontier) -> dict:
+    """The port's ``Frontier`` -> a dict of numpy arrays in the JAX
+    package's ``Frontier`` layout (uint32 masks)."""
     out = {}
     for k, v in state._asdict().items():
         a = v.detach().cpu().numpy()
-        if k in _MASK_FIELDS:
-            a = a.view(np.uint32)
-            if fused:
-                name, perm = inverse[k]
-                k, a = name, np.ascontiguousarray(a.transpose(np.argsort(perm)))
-        out[k] = a
+        out[k] = a.view(np.uint32) if k in _MASK_FIELDS else a
     return out
 
 

@@ -5,8 +5,9 @@ driver's round (``ops.cuda_step._fused_round``: one kernel launch on a
 lane block, then the job harvest, purge and local steal) runs on each
 shard's block, and the cross-shard merges of :mod:`.sharded` follow:
 
-* **per shard, per round**: one launch of K2 (or K3 through the cover
-  driver's ``rounds_fn``) on the shard's lanes, then the local bookkeeping;
+* **per shard, per round**: one launch of K2 or K3 (the shard's round
+  function, ``_rounds_fn`` of ``ops.cuda_step`` or ``ops.cuda_cover``) on
+  the shard's lanes, then the local bookkeeping;
 * **SOLUTION_FOUND**: newly solved flags merge with a psum, the winner is
   the lowest shard that solved the job (``pmin`` over shard indices);
 * **NEEDWORK / TASK**: the ring steal of :mod:`.sharded` (the port keeps
@@ -32,12 +33,8 @@ import torch
 
 from distributed_sudoku_solver_tpu_torch.models.geometry import Geometry
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
-from distributed_sudoku_solver_tpu_torch.ops.cuda_step import (
-    _fused_live,
-    _fused_round,
-    frontier_to_fused,
-    fused_lanes,
-)
+from distributed_sudoku_solver_tpu_torch.ops.cuda_bookkeep import _fused_live
+from distributed_sudoku_solver_tpu_torch.ops.cuda_step import _fused_round, _rounds_fn, fused_lanes
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     FUSED_STEPS_DEVICE,
     FUSED_STEPS_LINKED,
@@ -59,16 +56,15 @@ from distributed_sudoku_solver_tpu_torch.parallel.sharded import (
 )
 
 
-def _fused_round_sharded(fss, geom: Geometry | None, config: SolverConfig, mesh: Mesh,
-                         rounds_fn=None) -> list:
-    """One fused dispatch and the local bookkeeping on every shard, then
-    the cross-shard merges.  ``rounds_fn`` swaps the round kernel as in
-    ``_fused_round`` (every merge below is shape-generic)."""
+def _fused_round_sharded(fss, config: SolverConfig, mesh: Mesh, rounds_fn) -> list:
+    """One fused dispatch of ``rounds_fn`` and the local bookkeeping on
+    every shard, then the cross-shard merges (every merge below is
+    shape-generic, so K2 and K3 share them)."""
     n_dev = mesh.size
     n_jobs = fss[0].solved.shape[0]
     prev_solved, prev_solution = fss[0].solved, fss[0].solution
 
-    fss = [_fused_round(fs, geom, config, rounds_fn) for fs in fss]
+    fss = [_fused_round(fs, config, rounds_fn) for fs in fss]
 
     # --- merge job resolution across shards (the SOLUTION_FOUND broadcast) --
     newly = [fs.solved & ~prev_solved.to(fs.solved.device) for fs in fss]
@@ -119,11 +115,10 @@ def _fused_round_sharded(fss, geom: Geometry | None, config: SolverConfig, mesh:
     ]
 
 
-def _run_fused_sharded(fss, geom: Geometry | None, config: SolverConfig, mesh: Mesh,
-                       rounds_fn=None) -> SolveResult:
+def _run_fused_sharded(fss, config: SolverConfig, mesh: Mesh, rounds_fn) -> SolveResult:
     """The solve loop and the finalize psums over per-shard fused frontiers."""
     while _any_live(fss, _fused_live, mesh, config.max_steps):
-        fss = _fused_round_sharded(fss, geom, config, mesh, rounds_fn)
+        fss = _fused_round_sharded(fss, config, mesh, rounds_fn)
     res = finalize_sharded(fss, mesh, _fused_live)
     if config.count_all:
         # Exact global model count: per-shard counts are disjoint-subtree
@@ -152,8 +147,9 @@ def solve_batch_fused_sharded(grids, geom: Geometry,
     config = config.with_fused_steps(FUSED_STEPS_DEVICE)
     cfg = _per_shard_config(config, grids.shape[0], mesh.size,
                             lambda w: fused_lanes(w, geom.n, config.stack_slots))
-    state = frontier_to_fused(init_frontier(encode_grid(grids, geom), cfg))
-    return _decode_solution(_run_fused_sharded(shard_lanes(state, mesh), geom, cfg, mesh))
+    state = init_frontier(encode_grid(grids, geom), cfg)
+    rounds = _rounds_fn(geom, cfg, cfg.lanes // mesh.size)
+    return _decode_solution(_run_fused_sharded(shard_lanes(state, mesh), cfg, mesh, rounds))
 
 
 def solve_csp_fused_sharded(states0, problem,
@@ -164,7 +160,7 @@ def solve_csp_fused_sharded(states0, problem,
     exact summed counts under ``count_all``)."""
     from distributed_sudoku_solver_tpu_torch.models.cover import ExactCoverCSP
     from distributed_sudoku_solver_tpu_torch.ops.cuda_cover import (
-        _rounds_fn,
+        _rounds_fn as cover_rounds_fn,
         cover_fused_lanes,
         launch_shape,
     )
@@ -179,8 +175,7 @@ def solve_csp_fused_sharded(states0, problem,
     config = config.with_fused_steps(FUSED_STEPS_LINKED)
     launch_shape(problem)  # an instance K3 cannot take raises before the first dispatch
     cfg = _per_shard_config(config, states0.shape[0], mesh.size, cover_fused_lanes)
-    state = frontier_to_fused(init_frontier(states0, cfg))
-    per_shard = cfg.lanes // mesh.size
-    return _run_fused_sharded(shard_lanes(state, mesh), None, cfg, mesh,
-                              rounds_fn=_rounds_fn(problem, cfg, per_shard))
+    state = init_frontier(states0, cfg)
+    rounds = cover_rounds_fn(problem, cfg, cfg.lanes // mesh.size)
+    return _run_fused_sharded(shard_lanes(state, mesh), cfg, mesh, rounds)
 

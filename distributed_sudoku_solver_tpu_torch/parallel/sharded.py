@@ -65,8 +65,7 @@ LANE_FIELDS = ("top", "has_top", "stack", "base", "count", "job", "lane_rounds")
 
 def shard_lanes(state, mesh: Mesh) -> list:
     """A global (lane-first) frontier -> one per local shard: contiguous lane
-    blocks for :data:`LANE_FIELDS`, a copy of every other field.  ``state``
-    may be a ``Frontier`` or a ``FusedFrontier`` (same field names)."""
+    blocks for :data:`LANE_FIELDS`, a copy of every other field."""
     n_lanes = state.has_top.shape[0]
     if n_lanes % mesh.size:
         raise ValueError(f"lanes={n_lanes} do not divide over {mesh.size} shards")

@@ -4,11 +4,12 @@
 (``_kernel_outputs`` + ``_fused_bookkeeping`` + ``_fused_go``) into the
 buffers the kernel writes and never loads the library; ``bookkeep_cuda``
 refuses what the kernel does not take before any launch; the scratch's
-layout is the one ``csrc/bookkeep.cu`` states; and the CPU's eager loop
-runs no kernel.  The kernel itself is held bit-equal to the plain chain on
+layout is the one ``csrc/bookkeep.cu`` states; and the fused loop on the
+CPU runs no kernel.  The kernel itself is held bit-equal to the plain chain on
 a card (``tests/test_torch_bookkeep_cuda.py``).
 """
 
+import math
 import re
 import types
 
@@ -17,6 +18,7 @@ import torch
 
 from distributed_sudoku_solver_tpu_torch.obs import trace
 from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep, cuda_build, cuda_step
+from distributed_sudoku_solver_tpu_torch.ops.frontier import Frontier
 
 LANES, JOBS, SLOTS = 8, 3, 4
 BOARD = (4, 4)
@@ -31,6 +33,8 @@ def _no_library(monkeypatch):
 
 
 def _inputs(seed=0, lanes=LANES, jobs=JOBS, board=BOARD, words=None, count_all=False):
+    """A frontier and a round's outputs drawn from ``seed``; ``words`` of
+    the tile clear, the whole board by default (K2)."""
     gen = torch.Generator().manual_seed(seed)
 
     def ints(shape, lo, hi):
@@ -40,7 +44,7 @@ def _inputs(seed=0, lanes=LANES, jobs=JOBS, board=BOARD, words=None, count_all=F
         return torch.rand(shape, generator=gen) < p
 
     solved = flags((jobs,), 0.3)
-    state = cuda_step.FusedFrontier(
+    state = Frontier(
         top=ints((lanes, *board), -2**31, 2**31), stack=ints((lanes, SLOTS, *board), -2**31, 2**31),
         has_top=flags((lanes,), 0.5), base=ints((lanes,), 0, SLOTS),
         count=ints((lanes,), 0, SLOTS + 1), job=ints((lanes,), -1, jobs), solved=solved,
@@ -53,9 +57,9 @@ def _inputs(seed=0, lanes=LANES, jobs=JOBS, board=BOARD, words=None, count_all=F
             flags((lanes,), 0.3).to(torch.int32), flags((lanes,), 0.2).to(torch.int32),
             ints((lanes,), 0, 9), ints((lanes,), 0, 3), ints((lanes,), 0, 9),
             ints((lanes,), 0, 50)]
-    kout = cuda_step.KernelOut(ints((lanes, *board), -2**31, 2**31),
-                               ints((lanes, *board), -2**31, 2**31), torch.stack(rows),
-                               min(128, lanes), words)
+    kout = cuda_bookkeep.KernelOut(ints((lanes, *board), -2**31, 2**31),
+                                   ints((lanes, *board), -2**31, 2**31), torch.stack(rows),
+                                   min(128, lanes), math.prod(board) if words is None else words)
     limit = state.steps.to(torch.int64) + 10
     return state, kout, limit, torch.zeros((), dtype=torch.bool)
 
@@ -74,11 +78,10 @@ def test_cpu_tensors_take_the_plain_chain(family, steal, gang, count_all):
     board, words = (BOARD, None) if family == "k2" else ((1, 12), 7)
     config = _config(count_all, steal, gang)
     state, kout, limit, go = _inputs(3, board=board, words=words, count_all=count_all)
-    out = cuda_step._kernel_outputs(kout.top, state.stack, state.base, kout.sol, kout.lane_out,
-                                    kout.tile, kout.words)
-    want = cuda_step._fused_bookkeeping(
-        cuda_step.FusedFrontier(*(t.clone() for t in state)), out, config)
-    want_go = cuda_step._fused_go(want, limit)
+    out = cuda_bookkeep._kernel_outputs(kout.top, state.stack, state.base, kout.sol,
+                                        kout.lane_out, kout.tile, kout.words)
+    want = cuda_bookkeep._fused_bookkeeping(Frontier(*(t.clone() for t in state)), out, config)
+    want_go = cuda_bookkeep._fused_go(want, limit)
     cuda_bookkeep.bookkeep_plain(state, kout, limit, go, None, config)
     for name, a, b in zip(want._fields, state._replace(top=kout.top), want):
         assert torch.equal(a, b), name
@@ -195,8 +198,8 @@ def test_a_tile_must_not_cross_a_block(lanes, tile, refused):
 
 
 def test_the_eager_loop_counts_no_kernel_round():
-    """The CPU's loop (``_EagerRounds``) runs the plain chain: no graph
-    round, and no run of the bookkeeping kernel."""
+    """The fused loop on the CPU runs ``bookkeep_plain``, uncaptured: no
+    graph round, and no run of the bookkeeping kernel."""
     from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
     from distributed_sudoku_solver_tpu_torch.ops import cuda_cover
     from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig, init_frontier

@@ -24,10 +24,10 @@ import torch
 from distributed_sudoku_solver_tpu_torch.models.pentomino import pentomino_cover
 from distributed_sudoku_solver_tpu_torch.obs import trace
 from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep, cuda_cover, cuda_step
-from distributed_sudoku_solver_tpu_torch.ops.frontier import SolverConfig
+from distributed_sudoku_solver_tpu_torch.ops.frontier import Frontier, SolverConfig
 
-# board shape, the tile clear's words (None: the whole board, as K2)
-FAMILIES = {"k2-9x9": ((9, 9), None), "k2-16x16": ((16, 16), None),
+# board shape, the tile clear's words (K2: the whole board)
+FAMILIES = {"k2-9x9": ((9, 9), 81), "k2-16x16": ((16, 16), 256),
             "k3-8": ((1, 8), 5), "k3-68": ((1, 68), 44)}
 STEALS = {"no-steal": (False, 0), "steal": (True, 0), "gang32": (True, 32)}
 SCENARIOS = ("random", "all-dead", "no-donor")
@@ -59,7 +59,7 @@ def _frontier(gen, lanes, jobs, board, count_all, dev):
     rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
     solved = rand(jobs) < 0.3
     sol_count = _ints(gen, (jobs,), 0, 3, dev) if count_all else solved.to(torch.int32)
-    return cuda_step.FusedFrontier(
+    return Frontier(
         top=_ints(gen, (lanes, *board), *I32, dev),
         stack=_ints(gen, (lanes, SLOTS, *board), *I32, dev),
         has_top=rand(lanes) < 0.5,
@@ -87,10 +87,10 @@ def _kernel_out(gen, lanes, board, words, scenario, dev):
             (rand(lanes) < 0.03).to(torch.int32), _ints(gen, (lanes,), 0, 9, dev),
             _ints(gen, (lanes,), 0, 3, dev), _ints(gen, (lanes,), 0, 9, dev),
             _ints(gen, (lanes,), 0, 100, dev)]
-    return cuda_step.KernelOut(top=_ints(gen, (lanes, *board), *I32, dev),
-                               sol=_ints(gen, (lanes, *board), *I32, dev),
-                               lane_out=torch.stack(rows).contiguous(), tile=min(128, lanes),
-                               words=words)
+    return cuda_bookkeep.KernelOut(top=_ints(gen, (lanes, *board), *I32, dev),
+                                   sol=_ints(gen, (lanes, *board), *I32, dev),
+                                   lane_out=torch.stack(rows).contiguous(),
+                                   tile=min(128, lanes), words=words)
 
 
 def _clone(x):

@@ -4,13 +4,14 @@ One pass of the corpus of ``tests/test_torch_bulk.py`` through the fused
 first pass and a fused rung (``FUSED``: 11 of the 290 boards reach it),
 in four modes: with neither ``trace=`` nor a recorder installed, with
 ``trace={}``, with a recorder installed, and with both (a ring of 16, far
-below the pass's spans).  The loop-condition reads of
-``cuda_step._run_fused`` and its ``_fused_round`` calls are counted by
-patching the module, as ``tests/test_torch_status_pipeline.py`` does.
+below the pass's spans).  The dispatches of ``cuda_step._run_fused`` are
+counted at ``cuda_step.fused_rounds``, the benchmark's own hook, and its
+loop-condition reads as the ``fused.sync`` spans of each call, under a
+recording of the test's own where the pass opened none, as
+``tests/test_torch_status_pipeline.py`` counts them.
 """
 
 import collections
-import sys
 
 import numpy as np
 import pytest
@@ -37,29 +38,37 @@ def _corpus():
     return grids
 
 
+def _reads(run, *a, **k):
+    """``run(*a, **k)`` and its ``fused.sync`` spans: counted in the
+    current recording, or in one of the test's own where none is open."""
+    cur = trace.current()
+    if cur is None:
+        with trace.recording(keep=True) as own:
+            return run(*a, **k), own.counts.get("fused.sync", 0)
+    before = cur.counts.get("fused.sync", 0)
+    out = run(*a, **k)
+    return out, cur.counts["fused.sync"] - before
+
+
 def _one_pass(grids, mode: str) -> dict:
     """A pass in ``mode`` with the fused loop's reads, rounds and each
     ``_run_fused`` call's current recording counted."""
     reads, rounds, seen = [], [], []
-    live, rnd, run = cuda_step._fused_live, cuda_step._fused_round, cuda_step._run_fused
+    fused_rounds, run = cuda_step.fused_rounds, cuda_step._run_fused
 
-    def counting_live(fs):
-        if sys._getframe(1).f_code.co_name == "_fused_go":  # the loop condition
-            reads.append(1)
-        return live(fs)
-
-    def counting_round(*a, **k):
+    def counting_rounds(*a, **k):
         rounds.append(1)
-        return rnd(*a, **k)
+        return fused_rounds(*a, **k)
 
     def watching_run(*a, **k):
         seen.append(trace.current())
-        return run(*a, **k)
+        out, n = _reads(run, *a, **k)
+        reads.append(n)
+        return out
 
     rec = trace.TraceRecorder(ring=16 if mode == "both" else 4096)
     tr = {} if mode in TRACED else None
-    cuda_step._fused_live, cuda_step._fused_round = counting_live, counting_round
-    cuda_step._run_fused = watching_run
+    cuda_step.fused_rounds, cuda_step._run_fused = counting_rounds, watching_run
     try:
         if mode in ("recorder", "both"):
             with trace.installed(rec):
@@ -67,9 +76,8 @@ def _one_pass(grids, mode: str) -> dict:
         else:
             res = solve_bulk(grids, GEOM, FUSED, trace=tr, device="cpu")
     finally:
-        cuda_step._fused_live, cuda_step._fused_round = live, rnd
-        cuda_step._run_fused = run
-    return {"res": res, "trace": tr, "reads": len(reads), "rounds": len(rounds),
+        cuda_step.fused_rounds, cuda_step._run_fused = fused_rounds, run
+    return {"res": res, "trace": tr, "reads": sum(reads), "rounds": len(rounds),
             "seen": seen, "recorder": rec, "active_after": trace.active()}
 
 

@@ -1,21 +1,20 @@
-"""The fused loop's captured bookkeeping, on the CPU.
+"""The fused loop's driver and its cache of captured graphs, on the CPU.
 
-The CPU runs the bookkeeping eagerly and counts no graph round.  The graph
-cache's key and bound logic is held with stub entries.  The graph path of
-``ops/cuda_step._run_fused`` (``_RoundGraph``: static buffers loaded from the
-caller's frontier, one replay a dispatch, fresh tensors out) is held
-against the eager loop with a stub capture whose replay runs the plain
-bookkeeping eagerly: the same fields, the same dispatches, every one a
-graph round and one counted run of the bookkeeping kernel.  The real capture runs only on a card
-(``tests/test_torch_fused_graph_cuda.py``).
+On the CPU ``ops/cuda_step._run_fused`` runs the one driver (``_Rounds``:
+static buffers loaded from the caller's frontier, the round function
+writing into ``out=``, the plain bookkeeping in place, fresh tensors out)
+with nothing captured: no graph is claimed and no graph round counted.
+Each fused surface through it is held against the reference step
+(``_fused_round`` until ``_fused_go`` is false).  The graph cache's key
+and bound logic is held with stub entries.  The capture runs only on a
+card (``tests/test_torch_fused_graph_cuda.py``).
 """
-
-import functools
 
 import numpy as np
 import pytest
 import torch
 
+from distributed_sudoku_solver_tpu_torch.models.cover import build_cover
 from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, Geometry
 from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
 from distributed_sudoku_solver_tpu_torch.obs import trace
@@ -85,49 +84,81 @@ def test_graph_rounds_count_no_span():
 def _fs(lanes=8, jobs=3, slots=16, n=9):
     geom = Geometry(3, 3) if n == 9 else Geometry(2, 2)
     grids = torch.zeros(jobs, n, n, dtype=torch.int32)
-    state = init_frontier(encode_grid(grids, geom),
-                          SolverConfig(lanes=lanes, min_lanes=lanes, stack_slots=slots,
-                                       step_impl="fused"))
-    return cuda_step.frontier_to_fused(state)
+    return init_frontier(encode_grid(grids, geom),
+                         SolverConfig(lanes=lanes, min_lanes=lanes, stack_slots=slots,
+                                      step_impl="fused"))
 
 
-def _cover_fn():
-    problem = nqueens_cover(6)
-    return cuda_cover._rounds_fn(problem, FUSED_SMALL, 8)
+def _key(fs, config=FUSED_SMALL, rounds=None):
+    """The key of ``fs`` under K2's round function of its geometry and lanes."""
+    n = fs.top.shape[1]
+    rounds = rounds or cuda_step._rounds_fn(Geometry(3, 3) if n == 9 else Geometry(2, 2),
+                                            config, fs.has_top.shape[0])
+    return cuda_step._graph_key(fs, config, rounds)
+
+
+def _cover_32x40():
+    """A 32-row by 40-column instance (``w_rows`` 1, ``w_cols`` 2) with 256
+    exact covers: 8 groups of 5 columns, each covered whole or as 2 + 3,
+    beside a row of 3 that leads nowhere."""
+    groups = np.random.default_rng(7).permutation(40).reshape(8, 5)
+    rows = [r for g in groups for r in (g, g[:2], g[2:], g[:3])]
+    incidence = np.zeros((32, 40), dtype=bool)
+    for i, cols in enumerate(rows):
+        incidence[i, cols] = True
+    return build_cover("groups-32x40", incidence, 40)
+
+
+def _cover_key(problem, lanes=16):
+    cfg = SolverConfig(lanes=lanes, stack_slots=32, step_impl="fused", fused_steps=4,
+                       count_all=True)
+    fs = init_frontier(torch.from_numpy(problem.initial_state()[None]), cfg)
+    return cuda_step._graph_key(fs, cfg, cuda_cover._rounds_fn(problem, cfg, lanes))
+
+
+def _three_word_states():
+    """``nqueens_cover(6)`` (``w_rows`` 2, ``w_cols`` 1) and the 32x40
+    instance (``w_rows`` 1, ``w_cols`` 2): equal frontier shapes, a tile
+    clear of 2 words against one of 1."""
+    a, b = nqueens_cover(6), _cover_32x40()
+    assert (a.w_rows, a.w_cols, b.w_rows, b.w_cols) == (2, 1, 1, 2)
+    return _cover_key(a), _cover_key(b)
 
 
 KEY_CHANGES = {
-    "lanes": lambda: cuda_step._graph_key(_fs(lanes=16), FUSED_SMALL, None),
-    "jobs": lambda: cuda_step._graph_key(_fs(jobs=4), FUSED_SMALL, None),
-    "stack_slots": lambda: cuda_step._graph_key(_fs(slots=8), FUSED_SMALL, None),
-    "n": lambda: cuda_step._graph_key(_fs(n=4), FUSED_SMALL, None),
-    "count_all": lambda: cuda_step._graph_key(
-        _fs(), SolverConfig(min_lanes=8, stack_slots=16, step_impl="fused", count_all=True), None),
-    "steal": lambda: cuda_step._graph_key(
-        _fs(), SolverConfig(min_lanes=8, stack_slots=16, step_impl="fused", steal=False), None),
-    "steal_gang": lambda: cuda_step._graph_key(
-        _fs(), SolverConfig(min_lanes=8, stack_slots=16, step_impl="fused", steal_gang=8), None),
-    "family": lambda: cuda_step._graph_key(_fs(), FUSED_SMALL, _cover_fn()),
+    "lanes": lambda: (_key(_fs()), _key(_fs(lanes=16))),
+    "jobs": lambda: (_key(_fs()), _key(_fs(jobs=4))),
+    "stack_slots": lambda: (_key(_fs()), _key(_fs(slots=8))),
+    "n": lambda: (_key(_fs()), _key(_fs(n=4))),
+    "count_all": lambda: (_key(_fs()), _key(_fs(), SolverConfig(
+        min_lanes=8, stack_slots=16, step_impl="fused", count_all=True))),
+    "steal": lambda: (_key(_fs()), _key(_fs(), SolverConfig(
+        min_lanes=8, stack_slots=16, step_impl="fused", steal=False))),
+    "steal_gang": lambda: (_key(_fs()), _key(_fs(), SolverConfig(
+        min_lanes=8, stack_slots=16, step_impl="fused", steal_gang=8))),
+    "tile": lambda: (_key(_fs()), _key(_fs(), rounds=cuda_step._rounds_fn(
+        SUDOKU_9, FUSED_SMALL, 4))),
+    "words": _three_word_states,
 }
 
 
 @pytest.mark.parametrize("field", list(KEY_CHANGES))
 def test_graph_key_changes_with_what_the_chain_reads(field):
-    base = cuda_step._graph_key(_fs(), FUSED_SMALL, None)
-    assert KEY_CHANGES[field]() != base
+    before, after = KEY_CHANGES[field]()
+    assert before != after
 
 
 def test_graph_key_ignores_what_only_the_kernel_reads():
     """Rules, branch, sweeps and rounds a dispatch go to the kernel, which
     is launched outside the graph, and the values in the buffers are loaded
-    each call: none of them is part of the key."""
+    each call: none of them is part of the key, nor is which closure of an
+    instance's round function the caller built."""
     other = SolverConfig(min_lanes=8, stack_slots=16, step_impl="fused", fused_steps=32,
                          rules="basic", branch="head:mlp", max_sweeps=3, max_steps=9)
     fs = _fs()
-    moved = cuda_step.FusedFrontier(*(t + 1 if t.dtype != torch.bool else ~t for t in fs))
-    assert cuda_step._graph_key(moved, other, None) == cuda_step._graph_key(fs, FUSED_SMALL, None)
-    assert cuda_step._graph_key(fs, FUSED_SMALL, _cover_fn()) == cuda_step._graph_key(
-        fs, FUSED_SMALL, _cover_fn())
+    moved = type(fs)(*(t + 1 if t.dtype != torch.bool else ~t for t in fs))
+    assert _key(moved, other) == _key(fs)
+    assert _cover_key(nqueens_cover(6)) == _cover_key(nqueens_cover(6))
 
 
 def _claim(cache, key, made):
@@ -190,78 +221,38 @@ def test_cache_drops_an_entry_whose_claim_raised():
     assert made == ["a", "a"] and len(cache) == 1
 
 
-# -- the graph path, with a stub capture ----------------------------------------
+# -- the driver against the reference step ------------------------------------
 
 
-class _Stream:
-    def wait_stream(self, other):
-        pass
+def _reference(fs, config, limit, rounds_fn):
+    """The fused loop's reference: ``_fused_round`` until ``_fused_go`` is
+    false, each step counted as a dispatch of the call's recording."""
+    rec = trace.current() or trace.OFF
+    limit = cuda_step._step_limit(limit, config.max_steps)
+    while bool(cuda_bookkeep._fused_go(fs, limit)):
+        fs = cuda_step._fused_round(fs, config, rounds_fn)
+        rec.count("fused.dispatch")
+    return fs
 
 
-def _writing_into_out(plain):
-    """A round function that takes the kernels' ``out=`` (the graph hands
-    it three buffers to write): the plain version's returns written there
-    in the kernels' layout, as a ``KernelOut``.  Its top is already tile
-    cleared (a second clear changes nothing) and its sweeps are summed, so
-    lane 0 holds them all; the plain version updates the stack in place."""
+def _counted(run, reference: bool, monkeypatch):
+    """``run()`` through ``_run_fused`` or through the reference; returns
+    its result, its round-function calls (at the benchmark's hooks) and
+    its dispatch and graph counts."""
+    calls = []
+    for module, name in ((cuda_step, "fused_rounds"), (cuda_cover, "cover_fused_rounds")):
+        def counting(*a, _orig=getattr(module, name), **k):
+            calls.append(1)
+            return _orig(*a, **k)
 
-    def rounds(top, stack, has_top, base, count, family, out=None, **kw):
-        res = plain(top, stack, has_top, base, count, family, **kw)
-        if out is None:
-            return res
-        sweeps = torch.zeros_like(res[10])
-        sweeps[0] = res[11]
-        out[0].copy_(res[0])
-        out[1].copy_(res[6])
-        out[2].copy_(torch.stack([res[2].to(torch.int32), res[4], res[5].to(torch.int32),
-                                  res[7].to(torch.int32), res[8], res[9], res[10], sweeps]))
-        return cuda_step.KernelOut(*out, kw["tile"], getattr(family, "w_rows", None))
-
-    return rounds
-
-
-class _Graph:
-    """Stands in for a captured graph: its replay runs the bookkeeping."""
-
-    def __init__(self, replay):
-        self.replay = replay
-
-
-@pytest.fixture
-def stub_graphs(monkeypatch):
-    """A cache of its own, a capture whose replays run the captured
-    bookkeeping eagerly and count as the real ones do (the CPU has no
-    graphs, and the plain version, ``bookkeep_plain``, stands in for the
-    kernel) and round functions that write into the graph's buffers as the
-    kernels do; ``_run_fused`` still takes the eager path until a test sets
-    ``cuda_step._replays``."""
-    cache = cuda_step._GraphCache(8)
-    monkeypatch.setattr(cuda_step, "_GRAPHS", cache)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
-    monkeypatch.setattr(cuda_step, "fused_rounds", _writing_into_out(cuda_step.fused_rounds))
-    monkeypatch.setattr(cuda_cover, "cover_fused_rounds",
-                        _writing_into_out(cuda_cover.cover_fused_rounds))
-
-    def plain(*args):
-        cuda_bookkeep.bookkeep_plain(*args)
-
-    plain.launches = 0
-    monkeypatch.setattr(cuda_bookkeep, "bookkeep_cuda", plain)
-
-    def capture(self, config):
-        return tuple(functools.partial(cuda_step._replay_counted,
-                                       _Graph(functools.partial(self._bookkeep, p, config)))
-                     for p in (0, 1))
-
-    monkeypatch.setattr(cuda_step._RoundGraph, "_capture", capture)
-    return cache
-
-
-def _counted(run, graphed: bool, monkeypatch):
-    monkeypatch.setattr(cuda_step, "_replays", lambda fs: graphed)
+        monkeypatch.setattr(module, name, counting)
+    if reference:
+        monkeypatch.setattr(cuda_step, "_run_fused", _reference)
+        monkeypatch.setattr(cuda_cover, "_run_fused", _reference)
     with trace.recording(keep=True) as rec:
         out = run()
-    return out, rec.counts.get("fused.dispatch", 0), rec.counts.get("fused.graph", 0)
+    monkeypatch.undo()
+    return out, len(calls), rec.counts.get("fused.dispatch", 0), rec.counts.get("fused.graph", 0)
 
 
 def _equal(got, want):
@@ -311,40 +302,46 @@ SURFACES = {"batch": _batch, "status": _status, "megastep": _megastep, "cover": 
 
 
 @pytest.mark.parametrize("surface", list(SURFACES))
-def test_graph_path_equals_the_eager_loop(surface, stub_graphs, monkeypatch):
+def test_graph_path_equals_the_eager_loop(surface, monkeypatch):
+    """Each surface through the driver on the CPU (its buffers, the round
+    functions writing into ``out=``, ``bookkeep_plain`` in place) equals
+    the reference step iterated: every field, the same dispatches, and
+    neither a graph round nor a run of the bookkeeping kernel."""
     run = SURFACES[surface]
-    want, dispatches, eager_rounds = _counted(run, False, monkeypatch)
-    got, graph_dispatches, graph_rounds = _counted(run, True, monkeypatch)
+    kernel_runs = cuda_bookkeep.bookkeep_cuda.launches
+    got, calls, dispatches, graph_rounds = _counted(run, False, monkeypatch)
+    want, ref_calls, ref_dispatches, _ = _counted(run, True, monkeypatch)
     _equal(got, want)
-    assert graph_dispatches == dispatches > 0
-    assert graph_rounds == dispatches and eager_rounds == 0
-    assert cuda_bookkeep.bookkeep_cuda.launches == graph_rounds  # one run a replay
-    assert len(stub_graphs) >= 1
+    assert calls == dispatches == ref_calls == ref_dispatches > 0
+    assert graph_rounds == 0 and cuda_bookkeep.bookkeep_cuda.launches == kernel_runs
     if surface == "cover":
         assert int(got.sol_count.sum()) == 4  # the 6-queens solutions
 
 
-def test_graph_path_returns_fresh_tensors_and_the_callers_stack(stub_graphs, monkeypatch):
-    """Two calls on one key share the buffers; the first result is neither
-    written by the second nor a view of the buffers, each caller's stack is
-    updated in place, and a call that dispatches nothing returns its input."""
-    monkeypatch.setattr(cuda_step, "_replays", lambda fs: True)
+def test_graph_path_returns_fresh_tensors_and_the_callers_stack(monkeypatch):
+    """The result is neither written by a later call nor a view of the
+    driver's buffers, each caller's stack is updated in place, and a call
+    that dispatches nothing returns its input."""
+    made = []
+
+    class Kept(cuda_step._Rounds):
+        def __init__(self, fs):
+            super().__init__(fs)
+            made.append(self)
+
+    monkeypatch.setattr(cuda_step, "_Rounds", Kept)
     cfg = FUSED_SMALL
-
-    def frontier(rows):
-        state = start_frontier(torch.from_numpy(rows), SUDOKU_9, cfg)
-        return cuda_step.frontier_to_fused(state)
-
-    fs_a, fs_b = frontier(GRIDS), frontier(GRIDS[::-1].copy())
-    a = cuda_step._run_fused(fs_a, SUDOKU_9, cfg, 4)
+    rounds = cuda_step._rounds_fn(SUDOKU_9, cfg, 8)
+    fs_a = start_frontier(torch.from_numpy(GRIDS), SUDOKU_9, cfg)
+    fs_b = start_frontier(torch.from_numpy(GRIDS[::-1].copy()), SUDOKU_9, cfg)
+    a = cuda_step._run_fused(fs_a, cfg, 4, rounds)
     kept = [t.clone() for t in a]
-    b = cuda_step._run_fused(fs_b, SUDOKU_9, cfg, 4)
-    assert len(stub_graphs) == 1
+    b = cuda_step._run_fused(fs_b, cfg, 4, rounds)
+    assert len(made) == 2  # the CPU builds a driver each call and keeps none
     _equal(list(a), kept)
     assert a.stack is fs_a.stack and b.stack is fs_b.stack
-    (entry,) = [s[1] for s in stub_graphs._slots]
-    buffers = {t.data_ptr() for t in (*entry.state, *entry.tops)}
+    buffers = {t.data_ptr() for g in made for t in (*g.state, *g.tops, g.sol, g.lane_out)}
     assert not buffers & {t.data_ptr() for t in (*a, *b)}
     assert not torch.equal(a.top, b.top)
-    done = cuda_step._run_fused(a, SUDOKU_9, cfg, 0)
-    assert done is a
+    done = cuda_step._run_fused(a, cfg, 0, rounds)
+    assert done is a and len(made) == 2

@@ -1,13 +1,15 @@
 """The fused loop's bookkeeping replayed from a CUDA graph, held against the
-same bookkeeping run eagerly on the card.
+reference step on the card.
 
 Card-only (marked ``cuda``; a fixture skips them where no CUDA device is
 visible), and free of JAX, so the chip machine runs them with
 ``--noconftest``.  On each surface (a 16x16 first-pass batch, a fused rung
-chunk over several status advances, a megastep flight, a K3 cover run) the
-loop runs twice on the same inputs: with its bookkeeping replayed
-(``ops/cuda_step._RoundGraph``) and with ``_replays`` patched to run it
-eagerly (``_EagerRounds``, the CPU's path).  Every ``FusedFrontier`` field,
+chunk over several status advances, a megastep flight, a K3 cover run, two
+cover instances of one frontier shape taking turns) the loop runs twice on
+the same inputs: through ``ops/cuda_step._run_fused`` (the driver
+``_Rounds``, its bookkeeping replayed) and through the reference step
+(``_fused_round`` until ``_fused_go`` is false: the round kernel's
+13-tuple and the plain bookkeeping, eagerly).  Every ``Frontier`` field,
 the round kernel's launches and the dispatches must be equal.  Tolerance:
 exact equality.
 """
@@ -18,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_sudoku_solver_tpu_torch.models.cover import build_cover
 from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9, Geometry
 from distributed_sudoku_solver_tpu_torch.models.nqueens import nqueens_cover
 from distributed_sudoku_solver_tpu_torch.obs import trace
-from distributed_sudoku_solver_tpu_torch.ops import cuda_build, cuda_cover, cuda_step
+from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep, cuda_build, cuda_cover, cuda_step
 from distributed_sudoku_solver_tpu_torch.ops.bitmask import encode_grid
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
     FUSED_STEPS_LINKED,
@@ -60,19 +63,36 @@ def _grids16(count: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(boards.draw(seed, "graph", count, "sudoku16-93")[0].astype(np.int32))
 
 
-def _counted(run, eager: bool):
-    """``run()`` with the bookkeeping replayed or eager; returns its result,
-    the round kernels' launches, and the loop's dispatch and graph counts."""
-    replays = cuda_step._replays
-    if eager:
-        cuda_step._replays = lambda fs: False
+def _k2(fs):
+    """K2's round function under ``FIRST`` on ``fs``'s lanes."""
+    return cuda_step._rounds_fn(GEOM16, FIRST, fs.has_top.shape[0])
+
+
+def _reference(fs, config, limit, rounds_fn):
+    """The fused loop's reference: ``_fused_round`` until ``_fused_go`` is
+    false, each step counted as a dispatch of the call's recording."""
+    rec = trace.current() or trace.OFF
+    limit = cuda_step._step_limit(limit, config.max_steps)
+    while bool(cuda_bookkeep._fused_go(fs, limit)):
+        fs = cuda_step._fused_round(fs, config, rounds_fn)
+        rec.count("fused.dispatch")
+    return fs
+
+
+def _counted(run, reference: bool):
+    """``run()`` through ``_run_fused`` or through the reference; returns
+    its result, the round kernels' launches, and the loop's dispatch and
+    graph counts."""
+    loops = cuda_step._run_fused, cuda_cover._run_fused
+    if reference:
+        cuda_step._run_fused = cuda_cover._run_fused = _reference
     k2, k3 = cuda_step.fused_rounds_cuda.launches, cuda_cover.cover_fused_rounds_cuda.launches
     try:
         with trace.recording(keep=True) as rec:
             out = run()
         torch.cuda.synchronize()
     finally:
-        cuda_step._replays = replays
+        cuda_step._run_fused, cuda_cover._run_fused = loops
     launches = (cuda_step.fused_rounds_cuda.launches - k2
                 + cuda_cover.cover_fused_rounds_cuda.launches - k3)
     return out, launches, rec.counts.get("fused.dispatch", 0), rec.counts.get("fused.graph", 0)
@@ -86,9 +106,9 @@ def _assert_equal(got, want):
 
 def _both(run, graphs):
     got, launches, dispatches, replays = _counted(run, False)
-    want, eager_launches, eager_dispatches, eager_replays = _counted(run, True)
-    assert launches == eager_launches == dispatches == eager_dispatches > 0
-    assert replays == dispatches and eager_replays == 0
+    want, ref_launches, ref_dispatches, ref_replays = _counted(run, True)
+    assert launches == ref_launches == dispatches == ref_dispatches > 0
+    assert replays == dispatches and ref_replays == 0
     assert len(graphs) >= 1
     return got, want
 
@@ -100,8 +120,8 @@ def test_first_pass_batch_16x16(cuda_device, graphs):
     states0 = encode_grid(_grids16(4096, 17).to(cuda_device), GEOM16)
 
     def run():
-        fs = cuda_step.frontier_to_fused(init_frontier(states0, FIRST))
-        return cuda_step._run_fused(fs, GEOM16, FIRST, FIRST.max_steps)
+        fs = init_frontier(states0, FIRST)
+        return cuda_step._run_fused(fs, FIRST, FIRST.max_steps, _k2(fs))
 
     got, want = _both(run, graphs)
     _assert_equal(got, want)
@@ -149,7 +169,7 @@ def test_megastep_flight(cuda_device, graphs):
 
 @pytest.mark.cuda
 def test_k3_cover_run(cuda_device, graphs):
-    """Every solution of n-queens 8 counted by K3 through ``rounds_fn``."""
+    """Every solution of n-queens 8 counted by K3 through its round function."""
     problem = nqueens_cover(8)
     cfg = SolverConfig(lanes=256, stack_slots=64, step_impl="fused", fused_steps=4,
                        count_all=True)
@@ -180,11 +200,11 @@ def test_a_patched_fused_rounds_sees_every_dispatch(cuda_device, monkeypatch, gr
     monkeypatch.setattr(cuda_step, "fused_rounds", watching)
     before = cuda_step.fused_rounds_cuda.launches
     with trace.recording(keep=True) as rec:
-        fs = cuda_step.frontier_to_fused(init_frontier(states0, FIRST))
-        cuda_step._run_fused(fs, GEOM16, FIRST, FIRST.max_steps)
+        fs = init_frontier(states0, FIRST)
+        cuda_step._run_fused(fs, FIRST, FIRST.max_steps, _k2(fs))
     launches = cuda_step.fused_rounds_cuda.launches - before
     assert len(seen) == launches == rec.counts["fused.dispatch"] == rec.counts["fused.graph"] > 1
-    first = cuda_step.frontier_to_fused(init_frontier(states0, FIRST))
+    first = init_frontier(states0, FIRST)
     for a, b in zip(seen[0], (first.top, first.stack, first.has_top, first.base, first.count)):
         assert torch.equal(a, b)
 
@@ -204,8 +224,8 @@ def test_capture_beside_a_copying_thread(cuda_device, graphs):
     states0 = encode_grid(_grids16(1024, 31).to(cuda_device), GEOM16)
 
     def run():
-        fs = cuda_step.frontier_to_fused(init_frontier(states0, FIRST))
-        return cuda_step._run_fused(fs, GEOM16, FIRST, FIRST.max_steps)
+        fs = init_frontier(states0, FIRST)
+        return cuda_step._run_fused(fs, FIRST, FIRST.max_steps, _k2(fs))
 
     worker = threading.Thread(target=copying)
     worker.start()
@@ -228,12 +248,12 @@ def test_a_second_call_leaves_the_first_result_untouched(cuda_device, graphs):
     grids = _grids16(2048, 37).to(cuda_device)
 
     def frontier(rows):
-        return cuda_step.frontier_to_fused(init_frontier(encode_grid(rows, GEOM16), FIRST))
+        return init_frontier(encode_grid(rows, GEOM16), FIRST)
 
     fs_a, fs_b = frontier(grids[:1024]), frontier(grids[1024:])
-    a = cuda_step._run_fused(fs_a, GEOM16, FIRST, 64)
+    a = cuda_step._run_fused(fs_a, FIRST, 64, _k2(fs_a))
     kept = type(a)(*(t.clone() for t in a))
-    b = cuda_step._run_fused(fs_b, GEOM16, FIRST, 64)
+    b = cuda_step._run_fused(fs_b, FIRST, 64, _k2(fs_b))
     torch.cuda.synchronize()
     assert len(graphs) == 1
     _assert_equal(a, kept)
@@ -249,16 +269,59 @@ def test_a_failed_capture_raises_kernel_error(cuda_device, monkeypatch, graphs):
     """A bookkeeping that cannot be captured (here: one that reads a value
     on the host) raises ``KernelError`` and leaves no entry; nothing runs
     eagerly in its place."""
-    bookkeep = cuda_step._RoundGraph._bookkeep
+    bookkeep = cuda_step._Rounds._bookkeep
 
     def reading(self, p, config):
         bookkeep(self, p, config)
         bool(self.go)  # a host sync: illegal while the stream captures
 
-    monkeypatch.setattr(cuda_step._RoundGraph, "_bookkeep", reading)
+    monkeypatch.setattr(cuda_step._Rounds, "_bookkeep", reading)
     states0 = encode_grid(_grids16(256, 41).to(cuda_device), GEOM16)
-    fs = cuda_step.frontier_to_fused(init_frontier(states0, FIRST))
+    fs = init_frontier(states0, FIRST)
     with pytest.raises(cuda_build.KernelError):
-        cuda_step._run_fused(fs, GEOM16, FIRST, FIRST.max_steps)
+        cuda_step._run_fused(fs, FIRST, FIRST.max_steps, _k2(fs))
     assert len(graphs) == 0
     torch.cuda.synchronize()
+
+
+def _cover_32x40():
+    """A 32-row by 40-column instance (``w_rows`` 1, ``w_cols`` 2) with 256
+    exact covers: 8 groups of 5 columns, each covered whole or as 2 + 3,
+    beside a row of 3 that leads nowhere."""
+    groups = np.random.default_rng(7).permutation(40).reshape(8, 5)
+    rows = [r for g in groups for r in (g, g[:2], g[2:], g[:3])]
+    incidence = np.zeros((32, 40), dtype=bool)
+    for i, cols in enumerate(rows):
+        incidence[i, cols] = True
+    return build_cover("groups-32x40", incidence, 40)
+
+
+@pytest.mark.cuda
+def test_two_cover_instances_of_one_shape_take_turns(cuda_device, graphs):
+    """``nqueens_cover(6)`` (``w_rows`` 2, ``w_cols`` 1) and a 32x40
+    instance (``w_rows`` 1, ``w_cols`` 2) have 3-word states, so at 16
+    lanes their frontiers have one shape, but their tile clears differ:
+    advanced in turns, 4 steps a call, each keeps a graph of its own and
+    equals the reference step after every call, and both count in full."""
+    problems = (nqueens_cover(6), _cover_32x40())
+    assert [(p.w_rows, p.w_cols) for p in problems] == [(2, 1), (1, 2)]
+    cfg = SolverConfig(lanes=16, stack_slots=32, step_impl="fused", fused_steps=4,
+                       count_all=True)
+
+    def run():
+        states = [init_frontier(torch.from_numpy(p.initial_state()[None]).to(cuda_device), cfg)
+                  for p in problems]
+        out = []
+        for _ in range(14):
+            for i, p in enumerate(problems):
+                states[i] = cuda_cover.advance_cover_fused(states[i], int(states[i].steps) + 4,
+                                                           p, cfg)
+                out.append(states[i])
+        return out
+
+    got, want = _both(run, graphs)
+    for g, w in zip(got, want, strict=True):
+        _assert_equal(g, w)
+    assert len(graphs) == 2
+    assert [int(s.sol_count.sum()) for s in got[-2:]] == [4, 256]
+    assert not any(bool(s.has_top.any()) for s in got[-2:])

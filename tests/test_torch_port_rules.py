@@ -6,6 +6,8 @@
   caller asks for the CPU (the probes' ``python -m`` entries need
   ``--device cpu``); kernel wrappers, the probes' included, never fall
   back to the plain version for a tensor that is not on the CPU.
+* The fused loop's modules import one way: ``frontier`` <-
+  ``cuda_bookkeep`` <- ``cuda_step`` <- ``cuda_cover``.
 * ``chip_smoke.py``'s ``kernels`` line names all five kernels.
 * Tests marked ``cuda`` hold each kernel against its plain version on a
   card; a fixture decides whether a card exists and skips otherwise.
@@ -107,6 +109,29 @@ def test_no_port_file_imports_jax(path):
         for name in names:
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "distributed_sudoku_solver_tpu"), (path, name)
+
+
+# The fused loop's layers, lowest first: the frontier record, the job
+# bookkeeping, K2 and the loop, K3.  Each module imports none above it.
+FUSED_LAYERS = ("frontier", "cuda_bookkeep", "cuda_step", "cuda_cover")
+
+
+@pytest.mark.parametrize("layer", FUSED_LAYERS[:-1])
+def test_fused_loop_imports_point_one_way(layer):
+    """``frontier`` <- ``cuda_bookkeep`` <- ``cuda_step`` <- ``cuda_cover``:
+    no import of a higher layer anywhere in the module, inside a function
+    or under ``TYPE_CHECKING`` included."""
+    above = set(FUSED_LAYERS[FUSED_LAYERS.index(layer) + 1:])
+    tree = ast.parse((PKG / "ops" / f"{layer}.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in names:
+            assert name.rsplit(".", 1)[-1] not in above, (layer, name)
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):

@@ -35,7 +35,7 @@ from distributed_sudoku_solver_tpu.utils.checkpoint import (
 from distributed_sudoku_solver_tpu.utils.checkpoint import start_frontier as jax_start
 import distributed_sudoku_solver_tpu_torch.serving.engine as engine_mod
 from distributed_sudoku_solver_tpu_torch.models.geometry import SUDOKU_9
-from distributed_sudoku_solver_tpu_torch.obs import lockdep
+from distributed_sudoku_solver_tpu_torch.obs import lockdep, trace
 from distributed_sudoku_solver_tpu_torch.ops import cuda_step
 from distributed_sudoku_solver_tpu_torch.ops.cuda_step import advance_frontier_fused_status
 from distributed_sudoku_solver_tpu_torch.ops.frontier import (
@@ -164,27 +164,26 @@ def test_no_host_read_of_the_step_limit(cfg, monkeypatch):
 def test_fused_loop_condition_reads_counted():
     """``_run_fused`` reads its loop condition on the host once per K2
     dispatch plus once to stop: counted, not hidden (the device-side loop
-    that removes them is ROADMAP A8)."""
-    reads, dispatches = [], []
-    live, rnd = cuda_step._fused_live, cuda_step._fused_round
+    that removes them is ROADMAP A8).  Dispatches are counted at
+    ``cuda_step.fused_rounds``, the benchmark's hook, and reads as the
+    loop's ``fused.sync`` spans."""
+    dispatches = []
+    rounds = cuda_step.fused_rounds
 
-    def counting_live(fs):
-        reads.append(1)
-        return live(fs)
-
-    def counting_round(*a, **k):
+    def counting_rounds(*a, **k):
         dispatches.append(1)
-        return rnd(*a, **k)
+        return rounds(*a, **k)
 
-    cuda_step._fused_live, cuda_step._fused_round = counting_live, counting_round
+    cuda_step.fused_rounds = counting_rounds
     try:
         state = start_frontier(torch.from_numpy(GRIDS), SUDOKU_9, FUSED_SMALL)
-        advance_frontier_fused_status(state, 8, SUDOKU_9, FUSED_SMALL)
+        with trace.recording(keep=True) as rec:
+            advance_frontier_fused_status(state, 8, SUDOKU_9, FUSED_SMALL)
     finally:
-        cuda_step._fused_live, cuda_step._fused_round = live, rnd
-    # chunk_status reads no condition; each dispatch folds one _fused_live.
-    assert len(dispatches) == 4  # 8 rounds at fused_steps=2
-    assert len(reads) == len(dispatches) + 1
+        cuda_step.fused_rounds = rounds
+    # chunk_status reads no condition.
+    assert len(dispatches) == rec.counts["fused.dispatch"] == 4  # 8 rounds at fused_steps=2
+    assert rec.counts["fused.sync"] == len(dispatches) + 1
 
 
 # -- the fetch-count guard ------------------------------------------------------
@@ -226,8 +225,6 @@ def tracing(request, tmp_path):
         assert w.violations == [], w.violations
         assert w.acquisitions > 0
         return
-    from distributed_sudoku_solver_tpu_torch.obs import trace
-
     rec = trace.TraceRecorder(ring=8192)
     if request.param == "watched":
         from distributed_sudoku_solver_tpu_torch.obs import compilewatch, critpath
