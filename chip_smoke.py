@@ -75,7 +75,9 @@ full run and ``--compile`` take them in the order 1, 3, 21, 2, 4-20, 22,
    benchmark cell's shape: pentomino 6x10 at 32,768 lanes, one job,
    S=128, count mode, fanned out by 160 steps of fused dispatches, and
    32,768 16x16 boards, one job a lane, S=12, k=8, after two dispatches;
-   every field, the next top and the flag bit-equal; the kernel's device
+   every field, the next top, the flag and the gated ``has_top`` bit-equal;
+   both again with the flag false at entry (a spare dispatch of the
+   look-ahead), each leaving every buffer as it was; the kernel's device
    time (torch.profiler, its three launches a call), the plain version's
    and the bound by the bytes it has to move;
 10. the composite cover path (``step_impl="xla"``): n-queens 12 must count
@@ -1357,9 +1359,10 @@ def bookkeep_bytes(before, kout, after, clear_words: int) -> int:
 def _bookkeep_case(what, fs, kout, config, sizes):
     """The bookkeeping kernel and its plain version on one real dispatch
     (``fs`` before it, ``kout`` the round kernel's outputs): every field,
-    the next top and the flag bit-equal; then the kernel's device time
-    (torch.profiler, its three launches a call), the plain version's and
-    the bound by bytes."""
+    the next top, the flag and the gated ``has_top`` bit-equal; both again
+    with the flag false at entry (a spare dispatch), each leaving every
+    buffer as it was; then the kernel's device time (torch.profiler, its
+    three launches a call), the plain version's and the bound by bytes."""
     import torch
 
     from distributed_sudoku_solver_tpu_torch.ops import cuda_bookkeep
@@ -1367,33 +1370,55 @@ def _bookkeep_case(what, fs, kout, config, sizes):
     lanes, jobs, dev = fs.has_top.shape[0], fs.solved.shape[0], fs.has_top.device
     limit = fs.steps.to(torch.int64) + 1_000_000
 
-    def fresh():  # the stack is only read, so it is shared
+    def fresh(go=True):  # the stack is only read, so it is shared
         return (type(fs)(*(t if t is fs.stack else t.clone() for t in fs)),
                 kout._replace(top=kout.top.clone()), cuda_bookkeep.new_work(lanes, jobs, dev),
-                torch.zeros((), dtype=torch.bool, device=dev))
+                torch.full((), go, dtype=torch.bool, device=dev),  # the flag at entry
+                fs.has_top.to(torch.int32))  # the gate, as the loop's load leaves it
+
+    def fields(args):
+        return list(zip(args[0]._fields, args[0]._replace(top=args[1].top))) + [
+            ("go", args[3]), ("gate", args[4])]
+
+    def disagree(got, want):
+        errs = {name: max_abs_err(a, b) for (name, a), (_, b) in zip(fields(got), fields(want))}
+        return {k: v for k, v in errs.items() if v}
 
     got, want = fresh(), fresh()
-    cuda_bookkeep.bookkeep_cuda(got[0], got[1], limit, got[3], got[2], config)
-    cuda_bookkeep.bookkeep_plain(want[0], want[1], limit, want[3], None, config)
+    cuda_bookkeep.bookkeep_cuda(got[0], got[1], limit, got[3], got[2], config, got[4])
+    cuda_bookkeep.bookkeep_plain(want[0], want[1], limit, want[3], None, config, want[4])
     torch.cuda.synchronize()
-    pairs = list(zip(got[0]._fields, got[0]._replace(top=got[1].top),
-                     want[0]._replace(top=want[1].top))) + [("go", got[3], want[3])]
-    errs = {name: max_abs_err(a, b) for name, a, b in pairs}
-    if any(errs.values()):
+    pairs = fields(got)
+    errs = disagree(got, want)
+    if errs:
         raise AssertionError(f"the bookkeeping kernel disagrees with its plain version, {what}: "
-                             f"{ {k: v for k, v in errs.items() if v} }")
+                             f"{errs}")
+    before, spare_got, spare_want = fresh(False), fresh(False), fresh(False)
+    cuda_bookkeep.bookkeep_cuda(spare_got[0], spare_got[1], limit, spare_got[3], spare_got[2],
+                                config, spare_got[4])
+    cuda_bookkeep.bookkeep_plain(spare_want[0], spare_want[1], limit, spare_want[3], None, config,
+                                 spare_want[4])
+    torch.cuda.synchronize()
+    for side, args in (("kernel", spare_got), ("plain version", spare_want)):
+        errs = disagree(args, before)
+        if side == "kernel" and max_abs_err(args[2], before[2]):
+            errs["work"] = max_abs_err(args[2], before[2])
+        if errs:
+            raise AssertionError(f"the bookkeeping {side} changed buffers with the flag false at "
+                                 f"entry, {what}: {errs}")
     after = got[0]
     n_bytes = bookkeep_bytes(fs, kout, after, kout.words)
 
     def run(args):
-        cuda_bookkeep.bookkeep_cuda(args[0], args[1], limit, args[3], args[2], config)
+        cuda_bookkeep.bookkeep_cuda(args[0], args[1], limit, args[3], args[2], config, args[4])
 
     ms = device_ms(run, sizes["reps"], fresh, BOOKKEEP_KERNELS)
     plain_ms = event_ms(lambda a: cuda_bookkeep.bookkeep_plain(a[0], a[1], limit, a[3], None,
-                                                               config),
+                                                               config, a[4]),
                         2, setup=fresh)
     bms, by = bound_ms(n_bytes, 0)
-    log(f"[9] bookkeeping {what}: bit-equal (max_abs_err 0 on {len(pairs)} fields); "
+    log(f"[9] bookkeeping {what}: bit-equal (max_abs_err 0 on {len(pairs)} fields), and "
+        f"nothing changed with the flag false at entry; "
         f"{int(fs.has_top.sum())} lanes live before, {int(after.has_top.sum())} after, steals "
         f"{int(after.steals - fs.steals)}, go {bool(got[3])}; {ms:.4f} ms (3 kernels, "
         f"profiler), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, {n_bytes} B)")
@@ -1524,7 +1549,8 @@ def head_dispatch_work(top, stack, has, base, count, geom, rule, k) -> dict:
 
     out = _plain_rounds(top, stack, has, base, count,
                         lambda b: propagate_per_board(b, geom, 64, "extended", unroll=2),
-                        lambda b: status_full(b, geom), branch, k, 128, False)
+                        lambda b: status_full(b, geom), branch, k, 128, False,
+                        geom.n * geom.n)
     if work["branches"] != int(out[8].sum()):
         raise AssertionError(f"the work count saw {work['branches']} branches, the round "
                              f"{int(out[8].sum())}")

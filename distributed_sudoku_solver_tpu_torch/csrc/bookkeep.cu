@@ -32,9 +32,19 @@
 //     wrote it.  Each job folds its accumulators into the frontier (solution
 //     rows copied by warps) and resets them for the next dispatch.
 // The wrapper (ops/cuda_bookkeep.py) checks shapes, types and devices; the
-// graph of the fused loop (ops/cuda_step._RoundGraph) captures the three
-// launches.  The round kernel writes its tops into the buffer the frontier
+// fused loop's driver (ops/cuda_step._Rounds) captures the three launches in
+// a graph.  The round kernel writes its tops into the buffer the frontier
 // does not hold, and the two swap each dispatch, so no top is copied.
+//
+// The loop flag ``go`` is read at entry as well as written.  The driver keeps
+// one dispatch queued behind the one whose flag it reads, so a dispatch may
+// be enqueued after the flag fell (a spare).  Such a dispatch is an exact
+// no-op: H records the flag it found (``ran``) and, like P, leaves at once
+// when it is false, and S leaves when ``ran`` is 0, so nothing is harvested,
+// purged, stolen or counted and ``go`` stays false.  S also writes the gated
+// ``has_top`` (``gate``: has_top & go, int32) that the next round kernel
+// reads in place of the frontier's own, so a spare's round kernel sees no
+// live lane and copies every top through.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -72,6 +82,7 @@ struct Args {
   const int* lane_out;  // [8, L]: has, count, solved, overflow, nodes, sols, live, sweeps
   const long long* limit;
   unsigned char* go;
+  int* gate;  // [L] has_top & go for the next round kernel
   int* work;
   int lanes, jobs, slots, words, clear_words, tile, count_all, steal, gang;
 };
@@ -88,13 +99,14 @@ struct Work {
   int* donor_pre;  // [nb + 1]
   unsigned* idle_mask;   // [nb * WARPS] ballots
   unsigned* donor_mask;  // [nb * WARPS]
+  int* ran;        // [1] the flag H found at entry, for S
 };
 
 __host__ __device__ inline int blocks_of(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 __host__ __device__ inline long long work_words(int lanes, int jobs) {
   const long long nb = blocks_of(lanes);
-  return 4LL * jobs + N_SCALARS + 4 * nb + 2 + 2 * nb * WARPS;
+  return 4LL * jobs + N_SCALARS + 4 * nb + 2 + 2 * nb * WARPS + 1;
 }
 
 __device__ inline Work work_of(const Args& a) {
@@ -111,6 +123,7 @@ __device__ inline Work work_of(const Args& a) {
   w.donor_pre = w.idle_pre + nb + 1;
   w.idle_mask = (unsigned*)(w.donor_pre + nb + 1);
   w.donor_mask = w.idle_mask + nb * WARPS;
+  w.ran = (int*)(w.donor_mask + nb * WARPS);
   return w;
 }
 
@@ -208,6 +221,9 @@ __global__ void __launch_bounds__(BLOCK) harvest_kernel(Args a) {
   __shared__ int tile_max[BLOCK];
   __shared__ unsigned block_sum[3];
   const Work w = work_of(a);
+  const bool go = *a.go != 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *w.ran = go;
+  if (!go) return;  // a spare dispatch: the whole grid leaves
   const int L = a.lanes, lane = threadIdx.x % 32;
   const int first_lane = blockIdx.x * BLOCK;
   const int l = first_lane + threadIdx.x;
@@ -304,6 +320,9 @@ __global__ void __launch_bounds__(BLOCK) purge_kernel(Args a) {
   __shared__ int idle_w[WARPS], donor_w[WARPS];
   __shared__ int carry, scan_w[WARPS];
   __shared__ bool last;
+  // Every block reads the entry flag before any block counts itself done, so
+  // before the last block writes the new one.
+  if (*a.go == 0) return;
   const Work w = work_of(a);
   const int L = a.lanes, lane = threadIdx.x % 32, wib = threadIdx.x / 32;
   const int l = blockIdx.x * BLOCK + threadIdx.x;
@@ -369,6 +388,7 @@ __global__ void __launch_bounds__(BLOCK) purge_kernel(Args a) {
 __global__ void __launch_bounds__(BLOCK) steal_fold_kernel(Args a) {
   __shared__ int pairs_w[WARPS];
   const Work w = work_of(a);
+  if (*w.ran == 0) return;  // H found the flag false: a spare dispatch
   const int L = a.lanes, lane = threadIdx.x % 32, wib = threadIdx.x / 32;
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const int nb = blocks_of(L);
@@ -409,6 +429,9 @@ __global__ void __launch_bounds__(BLOCK) steal_fold_kernel(Args a) {
       if (n) atomicAdd((unsigned*)a.steals, (unsigned)n);
     }
   }
+  // The next round kernel's lanes: this thread's own has_top (a thief's was
+  // set just above, any other lane's by P) under the flag P wrote.
+  if (i < L) a.gate[i] = *a.go != 0 && a.has_top[i] != 0;
 
   // A job: fold its accumulators, copy a newly found solution, reset.
   const int j = i;
@@ -462,9 +485,9 @@ extern "C" int dsst_bookkeep(void* has_top, void* base, void* count, void* job, 
                              void* steps, void* sweeps, void* expansions, void* steals,
                              void* lane_rounds, const void* stack, void* top,
                              const void* lane_sol, const void* lane_out, const void* limit,
-                             void* go, void* work, long long work_len, int lanes, int jobs,
-                             int slots, int words, int clear_words, int tile, int count_all,
-                             int steal, int gang, void* stream) {
+                             void* go, void* gate, void* work, long long work_len, int lanes,
+                             int jobs, int slots, int words, int clear_words, int tile,
+                             int count_all, int steal, int gang, void* stream) {
   if (lanes < 1 || jobs < 1 || slots < 1 || words < 1 || clear_words < 0 ||
       clear_words > words || tile < 1 || lanes % tile != 0 ||
       (lanes > BLOCK && BLOCK % tile != 0) || gang < 0 ||
@@ -491,6 +514,7 @@ extern "C" int dsst_bookkeep(void* has_top, void* base, void* count, void* job, 
   a.lane_out = (const int*)lane_out;
   a.limit = (const long long*)limit;
   a.go = (unsigned char*)go;
+  a.gate = (int*)gate;
   a.work = (int*)work;
   a.lanes = lanes;
   a.jobs = jobs;

@@ -14,6 +14,12 @@ next frontier into ``state`` (every field but ``top``) and into
 ``kout.top``, which becomes the frontier's top, and the condition into
 ``go``.  Nothing is read on the host, so the fused loop
 (``ops/cuda_step._run_fused``) captures it in a CUDA graph.
+
+``go`` is read at entry too: a call that finds it false (a spare dispatch,
+enqueued by the loop after the flag fell) changes nothing, ``go`` and
+``gate`` included.  A call that finds it true also writes the next
+frontier's ``has_top & go`` into ``gate`` (int32 ``[L]``): the lanes the
+next round function reads, so a spare's round sees no live lane.
 :func:`bookkeep_plain` writes the plain chain's results into the same
 buffers: the loop's bookkeeping on the CPU, and the kernel's reference.
 ``bookkeep_cuda.launches`` counts the kernel's runs on the card: its calls
@@ -171,24 +177,24 @@ def _fused_go(fs: Frontier, limit) -> torch.Tensor:
 
 def work_words(lanes: int, jobs: int) -> int:
     """int32 words of the kernel's scratch: four per-job accumulators, the
-    scalars, and per block of ``BLOCK`` lanes two counts, two prefixes and
-    the warps' two ballots."""
+    scalars, per block of ``BLOCK`` lanes two counts, two prefixes and the
+    warps' two ballots, and the entry flag the harvest found."""
     nb = -(-lanes // BLOCK)
-    return 4 * jobs + N_SCALARS + 4 * nb + 2 + 2 * nb * (BLOCK // 32)
+    return 4 * jobs + N_SCALARS + 4 * nb + 2 + 2 * nb * (BLOCK // 32) + 1
 
 
 def new_work(lanes: int, jobs: int, device) -> torch.Tensor:
     """The scratch as the kernel expects it before its first call: each
     job's first-solution lane ``NO_LANE``, every other word 0.  Each call
     leaves the per-job accumulators and the scalars (the first ``4 * jobs +
-    N_SCALARS`` words) so again; the per-block counts, prefixes and ballots
-    after them are written anew before each read."""
+    N_SCALARS`` words) so again; the per-block counts, prefixes, ballots and
+    the entry flag after them are written anew before each read."""
     work = torch.zeros(work_words(lanes, jobs), dtype=torch.int32, device=device)
     work[:jobs] = NO_LANE
     return work
 
 
-def _check(state: Frontier, kout: KernelOut, limit, go, work, config) -> tuple:
+def _check(state: Frontier, kout: KernelOut, limit, go, work, config, gate) -> tuple:
     """Raise on what the kernel does not take; returns ``(lanes, jobs,
     slots, words, clear_words, tile)``."""
     lanes, jobs = state.has_top.shape[0], state.solved.shape[0]
@@ -204,9 +210,9 @@ def _check(state: Frontier, kout: KernelOut, limit, go, work, config) -> tuple:
     tensors = {name: getattr(state, name) for name in want}
     tensors["stack"] = state.stack
     tensors.update(kernel_top=kout.top, lane_sol=kout.sol, lane_out=kout.lane_out,
-                   limit=limit, go=go, work=work)
+                   limit=limit, go=go, gate=gate, work=work)
     want.update(kernel_top=(lanes, *board), lane_sol=(lanes, *board), lane_out=(8, lanes),
-                limit=(), go=())
+                limit=(), go=(), gate=(lanes,))
     for name, shape in want.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got {list(tensors[name].shape)}")
@@ -244,7 +250,7 @@ def _check(state: Frontier, kout: KernelOut, limit, go, work, config) -> tuple:
 def _lib():
     lib = cuda_build.load("bookkeep")
     fn = lib.dsst_bookkeep
-    fn.argtypes = [_P] * 21 + [_LL] + [_I] * 9 + [_P]
+    fn.argtypes = [_P] * 22 + [_LL] + [_I] * 9 + [_P]
     fn.restype = _I
     lib.dsst_bookkeep_prepare.restype = _I
     return lib
@@ -257,18 +263,19 @@ def prepare() -> None:
 
 
 def bookkeep_cuda(state: Frontier, kout: KernelOut, limit: torch.Tensor, go: torch.Tensor,
-                  work: torch.Tensor, config) -> None:
+                  work: torch.Tensor, config, gate: torch.Tensor) -> None:
     """Launch the bookkeeping on CUDA tensors (no host sync), in place:
-    ``state`` (not its ``top``), ``kout.top``, ``go`` and ``work``.
-    ``config`` gives ``count_all``, ``steal`` and ``steal_gang``."""
-    lanes, jobs, slots, words, clear, tile = _check(state, kout, limit, go, work, config)
+    ``state`` (not its ``top``), ``kout.top``, ``go``, ``work`` and
+    ``gate``; nothing where ``go`` is false at entry.  ``config`` gives
+    ``count_all``, ``steal`` and ``steal_gang``."""
+    lanes, jobs, slots, words, clear, tile = _check(state, kout, limit, go, work, config, gate)
     if state.has_top.device.type != "cuda":
         raise ValueError(f"bookkeep_cuda needs CUDA tensors; the frontier is on "
                          f"{state.has_top.device}")
     s = state
     ptrs = (s.has_top, s.base, s.count, s.job, s.solved, s.solution, s.overflowed, s.nodes,
             s.sol_count, s.steps, s.sweeps, s.expansions, s.steals, s.lane_rounds, s.stack,
-            kout.top, kout.sol, kout.lane_out, limit, go, work)
+            kout.top, kout.sol, kout.lane_out, limit, go, gate, work)
     err = _lib().dsst_bookkeep(
         *(t.data_ptr() for t in ptrs), work.shape[0], lanes, jobs, slots, words, clear, tile,
         int(bool(config.count_all)), int(bool(config.steal)),
@@ -283,14 +290,17 @@ bookkeep_cuda.launches = 0
 
 
 def bookkeep_plain(state: Frontier, kout: KernelOut, limit, go: torch.Tensor, work,
-                   config) -> None:
+                   config, gate: torch.Tensor) -> None:
     """The plain version, on any device: the plain chain, its results
-    copied into the buffers :func:`bookkeep_cuda` writes (``work`` is not
-    read)."""
+    copied into the buffers :func:`bookkeep_cuda` writes, each left as it
+    was where ``go`` is false at entry (selected on the device, no host
+    read; ``work`` is not read)."""
     out = _kernel_outputs(kout.top, state.stack, state.base, kout.sol, kout.lane_out, kout.tile,
                           kout.words)
     new = _fused_bookkeeping(state, out, config)
-    go.copy_(_fused_go(new, limit))
+    ran = go.clone()
+    go.copy_(ran & _fused_go(new, limit))
+    gate.copy_(torch.where(ran, new.has_top & go, gate != 0))
     for buf, val in zip(state._replace(top=kout.top), new):
         if val is not buf:
-            buf.copy_(val)
+            buf.copy_(torch.where(ran, val, buf))

@@ -40,8 +40,11 @@ The fused loop (:func:`_run_fused`) has one driver on every device
 buffers, then runs the job bookkeeping (harvest, purge, steal, counters)
 in place, ``ops/cuda_bookkeep.py``.  On CUDA the bookkeeping is a
 hand-written kernel (``csrc/bookkeep.cu``) replayed from a captured CUDA
-graph; on the CPU it is the plain version, called directly.
-:func:`_fused_round` is the functional reference step.
+graph; on the CPU it is the plain version, called directly.  The loop
+keeps :data:`LOOKAHEAD` dispatches enqueued while it reads a flag, so the
+device does not wait for the host between dispatches; a dispatch enqueued
+after the flag fell is an exact no-op.  :func:`_fused_round` is the
+functional reference step.
 """
 
 from __future__ import annotations
@@ -446,15 +449,30 @@ def _step_limit(limit, max_steps: int):
     return min(int(limit), max_steps)
 
 
+# Dispatches enqueued when the fused loop reads a loop flag: the one whose
+# flag it reads and LOOKAHEAD - 1 behind it, so the host enqueues while the
+# device runs.  Each call ends with LOOKAHEAD - 1 spare dispatches, enqueued
+# after the flag fell, which change nothing.
+LOOKAHEAD = 2
+
+
 class _Rounds:
     """The fused loop's driver over static buffers: ``state``, the
-    frontier between dispatches (the round function reads its lanes
-    there), the round function's own outputs (``sol``, ``lane_out`` and a
-    top; ``kout`` is the :class:`KernelOut` it returned), ``limit``, ``go``
-    and the bookkeeping kernel's scratch ``work``.  Each dispatch calls the
-    round function with ``out=`` those buffers, then runs the bookkeeping
-    in place, which writes the next frontier into ``state`` and the loop
-    condition into ``go``.
+    frontier between dispatches, the round function's own outputs (``sol``,
+    ``lane_out`` and a top; ``kout`` is the :class:`KernelOut` it
+    returned), ``limit``, ``go``, ``gate`` and the bookkeeping kernel's
+    scratch ``work``.  Each dispatch calls the round function on
+    ``state`` with ``gate`` as its ``has_top`` and with ``out=`` those
+    buffers, then runs the bookkeeping in place, which writes the next
+    frontier into ``state``, the loop condition into ``go`` and
+    ``has_top & go`` into ``gate``, then copies ``go`` into a slot of the
+    host ring ``flags``, which :meth:`flag` reads.
+
+    ``go`` is true after :meth:`load`; the bookkeeping of a dispatch that
+    finds it false changes nothing, and that dispatch's round function saw
+    ``gate`` all zero, so no live lane, and wrote every top through
+    unchanged.  So a dispatch enqueued after the flag fell (a spare)
+    leaves the frontier as it was, bit for bit.
 
     The frontier's top and the round's output top are two buffers,
     ``tops``, that swap each dispatch: the round reads one and writes the
@@ -470,7 +488,11 @@ class _Rounds:
     meanwhile); a capture that fails raises ``KernelError``.  Each replay
     counts one run in ``bookkeep_cuda.launches`` and one ``fused.graph``.
     The round function stays outside the graph: it is called from Python
-    each dispatch."""
+    each dispatch.
+
+    On CUDA each slot of ``flags`` (pinned) has an event recorded after
+    its copy, so reading a flag waits for its dispatch alone, not for the
+    ones enqueued behind it; on the CPU the copy is done when it returns."""
 
     def __init__(self, fs: Frontier):
         dev = fs.has_top.device
@@ -482,13 +504,19 @@ class _Rounds:
         self.lane_out = torch.empty((8, lanes), dtype=torch.int32, device=dev)
         self.limit = torch.zeros((), dtype=torch.int64, device=dev)
         self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.gate = torch.zeros(lanes, dtype=torch.int32, device=dev)
         self.work = cuda_bookkeep.new_work(lanes, jobs, dev) if self.captured else None
+        flags = torch.zeros(LOOKAHEAD, dtype=torch.bool, pin_memory=self.captured)
+        self.flags = flags.unbind(0)
+        self.events = [torch.cuda.Event() for _ in self.flags] if self.captured else None
         self.kout: KernelOut | None = None
         self.graphs = None  # by the index in ``tops`` of the frontier's top
         self.stream = None  # where the last call's reads of ``state`` were enqueued
 
     def load(self, fs: Frontier, limit) -> None:
-        """Start a call: the caller's frontier and limit into the buffers."""
+        """Start a call whose loop condition the host read as true: the
+        caller's frontier and limit into the buffers, ``go`` true and
+        ``gate`` the frontier's ``has_top``."""
         if self.captured:
             stream = torch.cuda.current_stream(self.go.device)
             if self.stream is not None and self.stream != stream:
@@ -496,12 +524,16 @@ class _Rounds:
             self.stream = stream
         torch._foreach_copy_(list(self.state), list(fs))
         self.limit.fill_(limit)
+        self.go.fill_(True)
+        self.gate.copy_(fs.has_top)
 
-    def dispatch_round(self, rounds_fn, config, rec) -> None:
+    def dispatch_round(self, rounds_fn, config, rec, slot: int) -> None:
         """One dispatch: the round function on the buffers, writing into
-        ``tops``, ``sol`` and ``lane_out``, then the bookkeeping."""
+        ``tops``, ``sol`` and ``lane_out``, then the bookkeeping, then
+        ``go`` into ``flags[slot]``."""
         p = 0 if self.state.top is self.tops[0] else 1
-        self.kout = rounds_fn(self.state, out=(self.tops[1 - p], self.sol, self.lane_out))
+        self.kout = rounds_fn(self.state._replace(has_top=self.gate),
+                              out=(self.tops[1 - p], self.sol, self.lane_out))
         if self.captured:
             if self.graphs is None:
                 self.graphs = self._capture(config)
@@ -511,6 +543,16 @@ class _Rounds:
         else:
             self._bookkeep(p, config)
         self.state = self.state._replace(top=self.tops[1 - p])
+        self.flags[slot].copy_(self.go, non_blocking=self.captured)
+        if self.captured:  # on the stream of the copy: the frontier device's, not the current
+            self.events[slot].record(self.stream)
+
+    def flag(self, slot: int) -> bool:
+        """The loop condition after the dispatch that last wrote
+        ``flags[slot]``; on CUDA this waits for that dispatch only."""
+        if self.captured:
+            self.events[slot].synchronize()  # the loop's one host wait a dispatch
+        return bool(self.flags[slot])  # a host tensor, its copy complete
 
     def unload(self, stack: torch.Tensor) -> Frontier:
         """End a call: fresh tensors of the frontier, which later calls do
@@ -522,7 +564,7 @@ class _Rounds:
         """The bookkeeping of a dispatch that read ``tops[p]``."""
         bookkeep = cuda_bookkeep.bookkeep_cuda if self.captured else cuda_bookkeep.bookkeep_plain
         bookkeep(self.state._replace(top=self.tops[p]), self.kout._replace(top=self.tops[1 - p]),
-                 self.limit, self.go, self.work, config)
+                 self.limit, self.go, self.work, config, self.gate)
 
     def _capture(self, config) -> tuple:
         """Capture the bookkeeping both ways round; returns the graphs."""
@@ -611,8 +653,11 @@ def _run_fused(fs: Frontier, config, limit, rounds_fn) -> Frontier:
     ``limit`` or ``config.max_steps`` (overshooting by up to
     ``fused_steps - 1``, as in JAX).  ``limit`` is a host int or a 0-d
     tensor on the frontier's device; both limits are compared on the
-    device.  One host sync per dispatch reads the loop condition, the
-    first before the first dispatch.
+    device.  On CUDA the frontier's device is the current device for the
+    loop (the caller's may be another card).  The host reads the loop
+    condition once before the first dispatch and then once a dispatch,
+    after enqueuing the next one (:data:`LOOKAHEAD`), so a call ends with a
+    spare dispatch, enqueued after the flag fell, which changes nothing.
 
     Each dispatch calls the round function, then does the bookkeeping
     (:class:`_Rounds`).  The call copies ``fs`` into the driver's buffers
@@ -623,9 +668,10 @@ def _run_fused(fs: Frontier, config, limit, rounds_fn) -> Frontier:
 
     Under an open call-scoped recording (``obs.trace.current()``), each
     condition read is a ``fused.sync`` span and each dispatch's enqueue,
-    from the read's return to the end of its bookkeeping, a
-    ``fused.dispatch`` span; the spans tile the loop.  A dispatch whose
-    bookkeeping was a replay counts one ``fused.graph``.  With none,
+    spares included, a ``fused.dispatch`` span; the spans tile the loop.  A
+    dispatch whose bookkeeping was a replay counts one ``fused.graph``, and
+    each spare one ``fused.spare``, known on the host: every dispatch
+    enqueued after the read that found the flag false.  With none,
     ``trace.OFF`` reads no clock and records nothing."""
     rec = trace.current() or trace.OFF
     t = rec.now()
@@ -635,31 +681,41 @@ def _run_fused(fs: Frontier, config, limit, rounds_fn) -> Frontier:
     if not go:
         return fs
     if fs.has_top.device.type == "cpu":
-        driver = contextlib.nullcontext(_Rounds(fs))
-    else:
+        card, driver = contextlib.nullcontext(), contextlib.nullcontext(_Rounds(fs))
+    else:  # the kernel libraries launch on the current device: make it the frontier's
+        card = torch.cuda.device(fs.has_top.device)
         driver = _GRAPHS.claim(_graph_key(fs, config, rounds_fn), lambda: _Rounds(fs))
-    with driver as g:
+    with card, driver as g:
         g.load(fs, limit)
+        queued = read = 0
         while go:
-            g.dispatch_round(rounds_fn, config, rec)
-            t = rec.span("fused.dispatch", "fused.dispatch", t)
-            go = bool(g.go)
+            while queued < read + LOOKAHEAD:
+                g.dispatch_round(rounds_fn, config, rec, queued % LOOKAHEAD)
+                queued += 1
+                t = rec.span("fused.dispatch", "fused.dispatch", t)
+            go = g.flag(read % LOOKAHEAD)
+            read += 1
             t = rec.span("fused.sync", "fetch.loop", t)
+        for _ in range(queued - read):
+            rec.count("fused.spare")
         return g.unload(fs.stack)
 
 
 def loop_counts(counts, dispatches: str, since=None) -> dict:
-    """Round-kernel dispatches, host syncs and graph rounds among a
-    recording's ``counts`` by name (less those of ``since``, an earlier
-    copy): its ``fused.dispatch`` spans under the key ``dispatches``
-    (``"k2_dispatches"``, ``"k3_dispatches"``), its ``*.sync`` spans as
-    ``host_syncs`` and its ``fused.graph`` events as ``graph_rounds``."""
+    """Round-kernel dispatches, host syncs, graph rounds and spare
+    dispatches among a recording's ``counts`` by name (less those of
+    ``since``, an earlier copy): its ``fused.dispatch`` spans (spares
+    included) under the key ``dispatches`` (``"k2_dispatches"``,
+    ``"k3_dispatches"``), its ``*.sync`` spans as ``host_syncs``, its
+    ``fused.graph`` events as ``graph_rounds`` and its ``fused.spare``
+    events as ``spare_dispatches``."""
     since = since or {}
     n = {name: c - since.get(name, 0) for name, c in counts.items()}
     return {
         dispatches: n.get("fused.dispatch", 0),
         "host_syncs": sum(c for name, c in n.items() if name.endswith(".sync")),
         "graph_rounds": n.get("fused.graph", 0),
+        "spare_dispatches": n.get("fused.spare", 0),
     }
 
 
@@ -677,9 +733,8 @@ def advance_frontier_fused_status(state, steps_delta, geom: Geometry, config):
     The limit is formed on the device (``state.steps + steps_delta``), so
     the host does not read the steps for it; the loop condition is still
     read before the first dispatch (:func:`_run_fused`), so this chunk is
-    not enqueued before the previous one has finished (the device-side
-    loop of ROADMAP A8 removes that read).  ``status`` is a fresh tensor
-    that later dispatches never write."""
+    not enqueued before the previous one has finished.  ``status`` is a
+    fresh tensor that later dispatches never write."""
     new = advance_frontier_fused(state, state.steps + steps_delta, geom, config)
     return new, chunk_status(state.steps, state.lane_rounds, new)
 

@@ -61,7 +61,12 @@ def _inputs(seed=0, lanes=LANES, jobs=JOBS, board=BOARD, words=None, count_all=F
                                    ints((lanes, *board), -2**31, 2**31), torch.stack(rows),
                                    min(128, lanes), math.prod(board) if words is None else words)
     limit = state.steps.to(torch.int64) + 10
-    return state, kout, limit, torch.zeros((), dtype=torch.bool)
+    return state, kout, limit, torch.ones((), dtype=torch.bool)  # the flag at entry: a live loop
+
+
+def _gate(state: Frontier) -> torch.Tensor:
+    """The gated ``has_top`` as the fused loop's load leaves it."""
+    return state.has_top.to(torch.int32)
 
 
 def _config(count_all=False, steal=True, gang=0):
@@ -74,7 +79,8 @@ def _config(count_all=False, steal=True, gang=0):
 def test_cpu_tensors_take_the_plain_chain(family, steal, gang, count_all):
     """On CPU tensors ``bookkeep_plain`` writes what the eager loop's chain
     returns: every field into ``state`` but the top, which goes to the
-    kernel's top, and the flag into ``go``."""
+    kernel's top, the flag into ``go`` and ``has_top & go`` into the
+    gate."""
     board, words = (BOARD, None) if family == "k2" else ((1, 12), 7)
     config = _config(count_all, steal, gang)
     state, kout, limit, go = _inputs(3, board=board, words=words, count_all=count_all)
@@ -82,10 +88,12 @@ def test_cpu_tensors_take_the_plain_chain(family, steal, gang, count_all):
                                         kout.lane_out, kout.tile, kout.words)
     want = cuda_bookkeep._fused_bookkeeping(Frontier(*(t.clone() for t in state)), out, config)
     want_go = cuda_bookkeep._fused_go(want, limit)
-    cuda_bookkeep.bookkeep_plain(state, kout, limit, go, None, config)
+    gate = _gate(state)
+    cuda_bookkeep.bookkeep_plain(state, kout, limit, go, None, config, gate)
     for name, a, b in zip(want._fields, state._replace(top=kout.top), want):
         assert torch.equal(a, b), name
     assert bool(go) == bool(want_go)
+    assert torch.equal(gate, (want.has_top & want_go).to(torch.int32))
 
 
 FAULTS = {
@@ -118,7 +126,27 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(fault):
     state, kout, limit, go = _inputs()
     state, kout, work = make(state, kout, cuda_bookkeep.new_work(LANES, JOBS, "cpu"))
     with pytest.raises(error):
-        cuda_bookkeep.bookkeep_cuda(state, kout, limit, go, work, _config())
+        cuda_bookkeep.bookkeep_cuda(state, kout, limit, go, work, _config(), _gate(state))
+    assert cuda_bookkeep.bookkeep_cuda.launches == 0
+
+
+GATE_FAULTS = {
+    "gate shape": (ValueError, lambda g: g[:-1]),
+    "gate dtype": (TypeError, lambda g: g.bool()),
+    "non-contiguous gate": (ValueError, lambda g: g.repeat(2)[::2]),
+}
+
+
+@pytest.mark.parametrize("fault", list(GATE_FAULTS))
+def test_wrapper_refuses_a_bad_gate(fault):
+    """The gate is an int32 ``[L]`` buffer of the frontier's device, or
+    the call raises before the library is loaded."""
+    error, make = GATE_FAULTS[fault]
+    state, kout, limit, go = _inputs()
+    with pytest.raises(error, match="gate"):
+        cuda_bookkeep.bookkeep_cuda(state, kout, limit, go,
+                                    cuda_bookkeep.new_work(LANES, JOBS, "cpu"), _config(),
+                                    make(_gate(state)))
     assert cuda_bookkeep.bookkeep_cuda.launches == 0
 
 
@@ -130,7 +158,7 @@ def test_wrapper_refuses_a_bad_limit_or_gang(what):
         limit = limit.int()
     with pytest.raises(TypeError if what == "limit dtype" else ValueError):
         cuda_bookkeep.bookkeep_cuda(state, kout, limit, go, cuda_bookkeep.new_work(
-            LANES, JOBS, "cpu"), config)
+            LANES, JOBS, "cpu"), config, _gate(state))
 
 
 def test_a_gang_that_does_not_divide_is_taken_without_steals():
@@ -140,7 +168,7 @@ def test_a_gang_that_does_not_divide_is_taken_without_steals():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         cuda_bookkeep.bookkeep_cuda(state, kout, limit, go,
                                     cuda_bookkeep.new_work(LANES, JOBS, "cpu"),
-                                    _config(steal=False, gang=3))
+                                    _config(steal=False, gang=3), _gate(state))
 
 
 def _source() -> str:
@@ -155,10 +183,11 @@ def test_scratch_layout_is_the_kernels():
     scalars = re.search(r"enum \{([^}]*)\};", src).group(1).replace(" ", "").split(",")
     assert scalars[-1] == "N_SCALARS" and len(scalars) - 1 == cuda_bookkeep.N_SCALARS
     assert "constexpr int NO_LANE = INT_MAX;" in src and cuda_bookkeep.NO_LANE == 2**31 - 1
-    assert re.search(r"return 4LL \* jobs \+ N_SCALARS \+ 4 \* nb \+ 2 \+ 2 \* nb \* WARPS;", src)
+    assert re.search(
+        r"return 4LL \* jobs \+ N_SCALARS \+ 4 \* nb \+ 2 \+ 2 \* nb \* WARPS \+ 1;", src)
     for lanes, jobs in ((1, 1), (96, 24), (256, 1), (257, 257), (32768, 32768)):
         nb = -(-lanes // 256)
-        assert cuda_bookkeep.work_words(lanes, jobs) == 4 * jobs + 5 + 4 * nb + 2 + 16 * nb
+        assert cuda_bookkeep.work_words(lanes, jobs) == 4 * jobs + 5 + 4 * nb + 2 + 16 * nb + 1
 
 
 def test_new_scratch_is_the_kernels_idle_state():
@@ -169,13 +198,13 @@ def test_new_scratch_is_the_kernels_idle_state():
 
 def test_launch_arguments_match_the_c_signature():
     """The ctypes argument list matches ``dsst_bookkeep``'s parameters:
-    21 pointers, the scratch's length, nine ints and the stream."""
+    22 pointers, the scratch's length, nine ints and the stream."""
     sig = re.search(r'extern "C" int dsst_bookkeep\(([^)]*)\)', _source()).group(1)
     kinds = [p.strip().rsplit(" ", 1)[0] for p in sig.split(",")]
     assert kinds == ["void*"] * 4 + ["void*"] * 10 + ["const void*", "void*", "const void*",
                                                       "const void*", "const void*", "void*",
-                                                      "void*", "long long"] + ["int"] * 9 + [
-                                                          "void*"]
+                                                      "void*", "void*", "long long"] + [
+                                                          "int"] * 9 + ["void*"]
 
 
 @pytest.mark.parametrize("lanes,tile,refused", [
@@ -193,7 +222,8 @@ def test_a_tile_must_not_cross_a_block(lanes, tile, refused):
     work = cuda_bookkeep.new_work(lanes, JOBS, "cpu")
     match = "does not divide a block" if refused else "needs CUDA tensors"
     with pytest.raises(ValueError, match=match):
-        cuda_bookkeep.bookkeep_cuda(state, kout._replace(tile=tile), limit, go, work, _config())
+        cuda_bookkeep.bookkeep_cuda(state, kout._replace(tile=tile), limit, go, work, _config(),
+                                    _gate(state))
     assert "(lanes > BLOCK && BLOCK % tile != 0)" in _source()
 
 

@@ -7,10 +7,10 @@ visible), and free of JAX, so the chip machine runs them with
 on the card from its seed (K2 boards of 9x9 and 16x16, K3 states of 8 and 68
 words), runs two dispatches of bookkeeping on each side, the kernel
 (``ops/cuda_bookkeep.bookkeep_cuda``) and ``bookkeep_plain``
-(``_kernel_outputs`` + ``_fused_bookkeeping`` + ``_fused_go``), and holds
-every field of the next frontier, the kernel's top and the loop flag
-equal, and the scratch's accumulators and scalars back at their initial
-state.  Tolerance:
+(``_kernel_outputs`` + ``_fused_bookkeeping`` + ``_fused_go``), with the
+loop flag true at entry, and holds every field of the next frontier, the
+kernel's top, the loop flag and the gated ``has_top`` equal, and the
+scratch's accumulators and scalars back at their initial state.  Tolerance:
 exact equality.  A whole 6x10 pentomino count through ``cover_fused_frontier``
 runs with the kernel in the fused loop's graph.
 """
@@ -119,14 +119,18 @@ def test_kernel_equals_the_plain_chain(cuda_device, family, count_all, steal, jo
         kout = _kernel_out(gen, lanes, board, words, scenario, cuda_device)
         kout_plain = _clone(kout)
         limit = got.steps.to(torch.int64) + _ints(gen, (), -3, 40, cuda_device, torch.int64)
-        go, go_plain = (torch.zeros((), dtype=torch.bool, device=cuda_device) for _ in range(2))
-        cuda_bookkeep.bookkeep_cuda(got, kout, limit, go, work, config)
-        cuda_bookkeep.bookkeep_plain(want, kout_plain, limit, go_plain, None, config)
+        go, go_plain = (torch.ones((), dtype=torch.bool, device=cuda_device) for _ in range(2))
+        gate, gate_plain = (torch.full((lanes,), -1, dtype=torch.int32, device=cuda_device)
+                            for _ in range(2))
+        cuda_bookkeep.bookkeep_cuda(got, kout, limit, go, work, config, gate)
+        cuda_bookkeep.bookkeep_plain(want, kout_plain, limit, go_plain, None, config, gate_plain)
         torch.cuda.synchronize()
         for name, a, b in zip(got._fields, got._replace(top=kout.top),
                               want._replace(top=kout_plain.top)):
             assert torch.equal(a, b), (dispatch, name)
         assert bool(go) == bool(go_plain), dispatch
+        assert torch.equal(gate, gate_plain), dispatch
+        assert torch.equal(gate, (got.has_top & go).to(torch.int32)), dispatch
         held = 4 * n_jobs + cuda_bookkeep.N_SCALARS  # what carries from call to call
         assert torch.equal(work[:held], cuda_bookkeep.new_work(lanes, n_jobs, cuda_device)[:held])
         got, want = got._replace(top=kout.top), want._replace(top=kout_plain.top)

@@ -128,14 +128,18 @@ def test_cover_solve_span_holds_the_recordings_counts(monkeypatch):
     names = [s["name"] for s in spans]
     assert names[-1] == "cover.solve" and set(names[:-1]) == {"fused.dispatch", "fused.sync"}
     assert tr["k3_dispatches"] == names.count("fused.dispatch") > 1
-    assert tr["host_syncs"] == names.count("fused.sync") == tr["k3_dispatches"] + 1
+    # One read before the loop and one a dispatch but the spare's, the one
+    # dispatch enqueued after the flag fell.
+    assert tr["spare_dispatches"] == 1
+    assert tr["host_syncs"] == names.count("fused.sync") == (
+        tr["k3_dispatches"] - tr["spare_dispatches"] + 1)
     assert tr["graph_rounds"] == 0  # the CPU runs the bookkeeping eagerly
     assert tr["lanes"] == CFG.lanes
     top = spans[-1]
     assert top["trace"] == tr["trace_id"] and tr["solve_s"] == pytest.approx(top["t1"] - top["t0"])
     assert top["attrs"] == {k: tr[k] for k in top["attrs"]}
-    assert set(top["attrs"]) == {"k3_dispatches", "host_syncs", "graph_rounds", "lanes",
-                                 *DEVICE_KEYS}
+    assert set(top["attrs"]) == {"k3_dispatches", "host_syncs", "graph_rounds",
+                                 "spare_dispatches", "lanes", *DEVICE_KEYS}
     # The loop's spans tile it: each starts where the one before ended.
     loop = spans[:-1]
     assert loop[0]["name"] == "fused.sync" and loop[-1]["name"] == "fused.sync"

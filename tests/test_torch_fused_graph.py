@@ -237,22 +237,31 @@ def _reference(fs, config, limit, rounds_fn):
 
 def _counted(run, reference: bool, monkeypatch):
     """``run()`` through ``_run_fused`` or through the reference; returns
-    its result, its round-function calls (at the benchmark's hooks) and
-    its dispatch and graph counts."""
-    calls = []
+    its result, its round-function calls (at the benchmark's hooks), its
+    dispatch, graph and spare counts, and the loop's calls that
+    dispatched."""
+    calls, runs = [], []
     for module, name in ((cuda_step, "fused_rounds"), (cuda_cover, "cover_fused_rounds")):
         def counting(*a, _orig=getattr(module, name), **k):
             calls.append(1)
             return _orig(*a, **k)
 
         monkeypatch.setattr(module, name, counting)
-    if reference:
-        monkeypatch.setattr(cuda_step, "_run_fused", _reference)
-        monkeypatch.setattr(cuda_cover, "_run_fused", _reference)
+    loop = _reference if reference else cuda_step._run_fused
+
+    def counting_loop(*a, **k):
+        before = len(calls)
+        out = loop(*a, **k)
+        runs.append(len(calls) > before)
+        return out
+
+    monkeypatch.setattr(cuda_step, "_run_fused", counting_loop)
+    monkeypatch.setattr(cuda_cover, "_run_fused", counting_loop)
     with trace.recording(keep=True) as rec:
         out = run()
     monkeypatch.undo()
-    return out, len(calls), rec.counts.get("fused.dispatch", 0), rec.counts.get("fused.graph", 0)
+    return (out, len(calls), rec.counts.get("fused.dispatch", 0), rec.counts.get("fused.graph", 0),
+            rec.counts.get("fused.spare", 0), sum(runs))
 
 
 def _equal(got, want):
@@ -305,14 +314,17 @@ SURFACES = {"batch": _batch, "status": _status, "megastep": _megastep, "cover": 
 def test_graph_path_equals_the_eager_loop(surface, monkeypatch):
     """Each surface through the driver on the CPU (its buffers, the round
     functions writing into ``out=``, ``bookkeep_plain`` in place) equals
-    the reference step iterated: every field, the same dispatches, and
-    neither a graph round nor a run of the bookkeeping kernel."""
+    the reference step iterated: every field, the same dispatches and one
+    spare a loop call that dispatched, and neither a graph round nor a run
+    of the bookkeeping kernel."""
     run = SURFACES[surface]
     kernel_runs = cuda_bookkeep.bookkeep_cuda.launches
-    got, calls, dispatches, graph_rounds = _counted(run, False, monkeypatch)
-    want, ref_calls, ref_dispatches, _ = _counted(run, True, monkeypatch)
+    got, calls, dispatches, graph_rounds, spares, runs = _counted(run, False, monkeypatch)
+    want, ref_calls, ref_dispatches, _, ref_spares, ref_runs = _counted(run, True, monkeypatch)
     _equal(got, want)
-    assert calls == dispatches == ref_calls == ref_dispatches > 0
+    assert ref_calls == ref_dispatches > 0 and ref_spares == 0
+    assert runs == ref_runs > 0 and spares == (cuda_step.LOOKAHEAD - 1) * runs
+    assert calls == dispatches == ref_calls + spares
     assert graph_rounds == 0 and cuda_bookkeep.bookkeep_cuda.launches == kernel_runs
     if surface == "cover":
         assert int(got.sol_count.sum()) == 4  # the 6-queens solutions

@@ -79,23 +79,34 @@ def _reference(fs, config, limit, rounds_fn):
     return fs
 
 
+def _launches():
+    return cuda_step.fused_rounds_cuda.launches + cuda_cover.cover_fused_rounds_cuda.launches
+
+
 def _counted(run, reference: bool):
     """``run()`` through ``_run_fused`` or through the reference; returns
-    its result, the round kernels' launches, and the loop's dispatch and
-    graph counts."""
+    its result, the round kernels' launches, the loop's dispatch, graph and
+    spare counts, and the loop's calls that dispatched."""
     loops = cuda_step._run_fused, cuda_cover._run_fused
-    if reference:
-        cuda_step._run_fused = cuda_cover._run_fused = _reference
-    k2, k3 = cuda_step.fused_rounds_cuda.launches, cuda_cover.cover_fused_rounds_cuda.launches
+    loop = _reference if reference else cuda_step._run_fused
+    runs = []
+
+    def counting_loop(*a, **k):
+        before = _launches()
+        out = loop(*a, **k)
+        runs.append(_launches() > before)
+        return out
+
+    cuda_step._run_fused = cuda_cover._run_fused = counting_loop
+    k = _launches()
     try:
         with trace.recording(keep=True) as rec:
             out = run()
         torch.cuda.synchronize()
     finally:
         cuda_step._run_fused, cuda_cover._run_fused = loops
-    launches = (cuda_step.fused_rounds_cuda.launches - k2
-                + cuda_cover.cover_fused_rounds_cuda.launches - k3)
-    return out, launches, rec.counts.get("fused.dispatch", 0), rec.counts.get("fused.graph", 0)
+    return (out, _launches() - k, rec.counts.get("fused.dispatch", 0),
+            rec.counts.get("fused.graph", 0), rec.counts.get("fused.spare", 0), sum(runs))
 
 
 def _assert_equal(got, want):
@@ -105,9 +116,11 @@ def _assert_equal(got, want):
 
 
 def _both(run, graphs):
-    got, launches, dispatches, replays = _counted(run, False)
-    want, ref_launches, ref_dispatches, ref_replays = _counted(run, True)
-    assert launches == ref_launches == dispatches == ref_dispatches > 0
+    got, launches, dispatches, replays, spares, runs = _counted(run, False)
+    want, ref_launches, ref_dispatches, ref_replays, ref_spares, ref_runs = _counted(run, True)
+    assert ref_launches == ref_dispatches > 0 and ref_spares == 0
+    assert runs == ref_runs > 0 and spares == (cuda_step.LOOKAHEAD - 1) * runs
+    assert launches == dispatches == ref_launches + spares
     assert replays == dispatches and ref_replays == 0
     assert len(graphs) >= 1
     return got, want
@@ -187,8 +200,9 @@ def test_k3_cover_run(cuda_device, graphs):
 @pytest.mark.cuda
 def test_a_patched_fused_rounds_sees_every_dispatch(cuda_device, monkeypatch, graphs):
     """The benchmark's K2 replay patches ``cuda_step.fused_rounds``: with
-    the bookkeeping replayed, every dispatch still calls it, with the
-    frontier's lanes as its first five arguments."""
+    the bookkeeping replayed, every dispatch, the spare too, still calls
+    it, with the frontier's lanes as its first five arguments (its
+    ``has_top`` as the driver's int32 gate)."""
     states0 = encode_grid(_grids16(1024, 29).to(cuda_device), GEOM16)
     seen = []
     orig = cuda_step.fused_rounds
@@ -204,9 +218,12 @@ def test_a_patched_fused_rounds_sees_every_dispatch(cuda_device, monkeypatch, gr
         cuda_step._run_fused(fs, FIRST, FIRST.max_steps, _k2(fs))
     launches = cuda_step.fused_rounds_cuda.launches - before
     assert len(seen) == launches == rec.counts["fused.dispatch"] == rec.counts["fused.graph"] > 1
+    assert rec.counts["fused.spare"] == cuda_step.LOOKAHEAD - 1
     first = init_frontier(states0, FIRST)
+    assert seen[0][2].dtype == torch.int32
     for a, b in zip(seen[0], (first.top, first.stack, first.has_top, first.base, first.count)):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype or b is first.has_top
+        assert torch.equal(a, b.to(a.dtype))
 
 
 @pytest.mark.cuda
@@ -230,12 +247,13 @@ def test_capture_beside_a_copying_thread(cuda_device, graphs):
     worker = threading.Thread(target=copying)
     worker.start()
     try:
-        got, launches, dispatches, replays = _counted(run, False)
+        got, launches, dispatches, replays, spares, runs = _counted(run, False)
     finally:
         stop.set()
         worker.join(timeout=60)
     assert not worker.is_alive() and copies and set(copies) == {(1 << 24) - 1}
     assert len(graphs) == 1 and replays == dispatches == launches > 0
+    assert runs == 1 and spares == cuda_step.LOOKAHEAD - 1
     want = _counted(run, True)[0]
     _assert_equal(got, want)
 

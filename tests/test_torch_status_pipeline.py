@@ -162,9 +162,9 @@ def test_no_host_read_of_the_step_limit(cfg, monkeypatch):
 
 
 def test_fused_loop_condition_reads_counted():
-    """``_run_fused`` reads its loop condition on the host once per K2
-    dispatch plus once to stop: counted, not hidden (the device-side loop
-    that removes them is ROADMAP A8).  Dispatches are counted at
+    """``_run_fused`` reads its loop condition on the host once before the
+    first K2 dispatch and once after each, except the spare it enqueued
+    after the flag fell: counted, not hidden.  Dispatches are counted at
     ``cuda_step.fused_rounds``, the benchmark's hook, and reads as the
     loop's ``fused.sync`` spans."""
     dispatches = []
@@ -182,8 +182,10 @@ def test_fused_loop_condition_reads_counted():
     finally:
         cuda_step.fused_rounds = rounds
     # chunk_status reads no condition.
-    assert len(dispatches) == rec.counts["fused.dispatch"] == 4  # 8 rounds at fused_steps=2
-    assert rec.counts["fused.sync"] == len(dispatches) + 1
+    # 8 rounds at fused_steps=2, and the spare.
+    assert len(dispatches) == rec.counts["fused.dispatch"] == 4 + 1
+    assert rec.counts["fused.spare"] == 1
+    assert rec.counts["fused.sync"] == len(dispatches) - rec.counts["fused.spare"] + 1
 
 
 # -- the fetch-count guard ------------------------------------------------------
